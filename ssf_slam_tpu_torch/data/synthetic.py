@@ -1,8 +1,8 @@
 """Synthetic CARLA-style scene-flow sequence generation — the port's numpy
 copy of ssf_slam_tpu/data/synthetic.py (same seed, byte-identical frames;
-tests/test_torch_ops.py holds the two to that). Hybrid foreground
-oversampling (a training option) and the out-and-back trajectory are left
-to the training and mapping slices.
+tests/test_torch_ops.py and tests/test_torch_slam.py hold the two to that,
+for the street and the out-and-back trajectories). Hybrid foreground
+oversampling (a training option) is left to the training slice.
 
 The reference generates its training/eval data offline with a CARLA client
 (scripts/ActiveSceneFlow/Scenario_Traj.py, Process.py, Generate_Sceneflow.py):
@@ -268,7 +268,48 @@ def _serpentine(step: int, n_steps: int, radius: float = 30.0):
     return np.array([x, y, 1.8]), float(yaw)
 
 
-TRAJECTORIES = {"street": _serpentine}
+def _out_and_back(step: int, n_steps: int, radius: float = 30.0):
+    """Closed-circuit trajectory: drive down the street, U-turn, drive back.
+
+    Revisits the outbound lane ~4 m away on the return leg, so the
+    loop-closure search (radius 15 m, >20 s separation,
+    src/mapOptmization.cpp:168-198) fires near the end of the sequence —
+    the serpentine street drive never revisits, which is why round-1 chip
+    runs never closed a loop. Stays inside the |y| < 5 clear corridor.
+    """
+    del radius
+    speed = 1.2
+    n_turn = 26  # ~7 deg/frame peak yaw rate — scan-to-scan tracks it
+    n_leg = max((n_steps + 1 - n_turn) // 2, 1)
+    turn_r = 1.5
+    x0, y_out, z = -45.0, -2.0, 1.8
+    # gentle lane weave on both legs: a perfectly straight corridor drive
+    # leaves the along-road axis geometrically unobservable for scan-to-scan
+    # registration (docs/PERFORMANCE.md corridor note); real cars weave
+    wamp, wfreq = 0.8, 0.25
+    if step < n_leg:  # outbound
+        y = y_out + wamp * np.sin(wfreq * step)
+        dy = wamp * wfreq * np.cos(wfreq * step)
+        return (np.array([x0 + speed * step, y, z]),
+                float(np.arctan2(dy, speed)))
+    if step < n_leg + n_turn:  # U-turn (left semicircle)
+        th = np.pi * (step - n_leg + 1) / (n_turn + 1)  # 0..pi
+        cx = x0 + speed * (n_leg - 1)
+        x = cx + turn_r * np.sin(th)
+        y = y_out + turn_r * (1.0 - np.cos(th))
+        return np.array([x, y, z]), float(th)
+    # return leg
+    k = step - n_leg - n_turn + 1
+    y_ret = y_out + 2 * turn_r
+    y = y_ret + wamp * np.sin(wfreq * k)
+    dy = wamp * wfreq * np.cos(wfreq * k)
+    return (
+        np.array([x0 + speed * (n_leg - 1) - speed * k, y, z]),
+        float(np.pi - np.arctan2(dy, speed)),
+    )
+
+
+TRAJECTORIES = {"street": _serpentine, "loop": _out_and_back}
 
 
 def generate_sequence(

@@ -1,1 +1,2 @@
-"""The fused scene-flow odometry step and its sequence runner."""
+"""The SLAM step, the fused network-in-the-loop step and their sequence
+runners."""

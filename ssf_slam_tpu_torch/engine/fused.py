@@ -1,44 +1,33 @@
-"""The fused scene-flow odometry step (ssf_slam_tpu/engine/fused.py, the
-SSF variant's scene-flow half of engine/pipeline.py::slam_step).
+"""The fused network-in-the-loop SSF step (ssf_slam_tpu/engine/fused.py).
 
 Per scan: the current cloud's TFlow tower, the head against the cached
 tower of the previous scan, the static mask from the joint seg logit
-(``out[:, 3] < 0``), static-masked Cauchy-IRLS Kabsch ego-motion on the
-previous cloud and its flow, then odometry integration
-``pose_compose`` + ``quat_normalize``. Frame 0 integrates identity motion
-(the JAX step's ``have_last`` gate). The mapping back end of ``slam_step``
-does not feed these outputs and belongs to the next slice.
+(``out[:, 3] < 0``), then the whole SLAM step (``engine/pipeline.py::
+slam_step``) on the previous cloud and its flow: plane features,
+static-masked IRLS Kabsch ego-motion, odometry integration and the
+seg-gated keyframe mapping back end.
 
 Tower caching: frame k's cloud-1 is frame k-1's cloud-2, so the previous
-scan's tower rides the carry. A cached tower is valid only under a
-sequence-stable Morton box (``sequence_box``).
+scan's tower rides the carry ``(SlamState, tower_prev)``. A cached tower is
+valid only under a sequence-stable Morton box (``sequence_box``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
-from ssf_slam_tpu_torch.config import PipelineConfig, Variant
+from ssf_slam_tpu_torch.config import PipelineConfig
 from ssf_slam_tpu_torch.device import resolve_device
-from ssf_slam_tpu_torch.odometry.egomotion import ego_motion_from_flow
-from ssf_slam_tpu_torch.ops.precision import set_geom_precision
-from ssf_slam_tpu_torch.ops.se3 import (
-    pose_compose,
-    quat_identity,
-    quat_normalize,
+from ssf_slam_tpu_torch.engine.pipeline import (
+    check_supported,
+    init_slam_state,
+    slam_step,
+    stack_outputs,
 )
+from ssf_slam_tpu_torch.ops.precision import set_geom_precision
 
 Tensor = torch.Tensor
-
-
-class FusedCarry(NamedTuple):
-    odom_q: Tensor  # [4] integrated odometry q_0_curr
-    odom_t: Tensor  # [3]
-    have_last: bool  # first-frame gate
-    tower_prev: dict  # the previous scan's TFlow tower
 
 
 def sequence_box(all_points: np.ndarray, margin: float = 1.0,
@@ -68,40 +57,33 @@ def stack_fused_scans(frames: list, n: int) -> dict:
 def make_fused_step(model, cfg: PipelineConfig, box):
     """Returns ``(step, make_carry)``:
     - ``step(carry, scan) -> (carry, outputs)`` for one scan dict of
-      tensors {points [N, 3], prev [N, 3], mask [N], prev_mask [N]};
-    - ``make_carry(first_prev [N, 3]) -> carry`` with the initial tower.
+      tensors {points [N, 3], prev [N, 3], mask [N], prev_mask [N], time}
+      with ``carry = (SlamState, tower_prev)``;
+    - ``make_carry(first_prev [N, 3]) -> carry`` with the initial state and
+      tower (frame 0 pairs with itself).
+    Outputs: those of ``slam_step`` plus the network output ``flow`` [N, 4].
     """
-    if cfg.variant != Variant.SSF:
-        raise NotImplementedError("this slice ports the SSF variant only")
+    check_supported(cfg)
     if model.cfg.neighbor_backend == "banded" and box is None:
         raise ValueError("tower caching on the banded backend needs a "
                          "sequence-stable Morton box (sequence_box)")
-    ego = cfg.egomotion
 
-    def step(carry: FusedCarry, scan: dict):
+    def step(carry, scan: dict):
+        state, tower_prev = carry
         t_curr = model.tower(scan["points"][None], box)
-        flows, _ = model.head(carry.tower_prev, t_curr, box)
+        flows, _ = model.head(tower_prev, t_curr, box)
         out = flows[0][0]
-        flow = out[:, :3].float()
-        if carry.have_last:
-            static = (out[:, 3] < 0.0) & scan["prev_mask"]
-            rel_q, rel_t = ego_motion_from_flow(
-                scan["prev"], flow, static, irls_iters=ego.irls_iters,
-                irls_sigma=ego.irls_sigma)
-        else:
-            rel_q = quat_identity(flow.device)
-            rel_t = torch.zeros(3, device=flow.device)
-        odom_q, odom_t = pose_compose((carry.odom_q, carry.odom_t),
-                                      (rel_q, rel_t))
-        odom_q = quat_normalize(odom_q)
-        outputs = dict(rel_q=rel_q, rel_t=rel_t, odom_q=odom_q,
-                       odom_t=odom_t, flow=out)
-        return FusedCarry(odom_q, odom_t, True, t_curr), outputs
+        slam_scan = dict(points=scan["points"], mask=scan["mask"],
+                         time=scan["time"], flow_points=scan["prev"],
+                         flow_mask=scan["prev_mask"],
+                         flow=out[:, :3].float(), static_mask=out[:, 3] < 0.0)
+        state, outputs = slam_step(state, slam_scan, cfg)
+        outputs["flow"] = out
+        return (state, t_curr), outputs
 
-    def make_carry(first_prev: Tensor) -> FusedCarry:
-        dev = first_prev.device
-        return FusedCarry(quat_identity(dev), torch.zeros(3, device=dev),
-                          False, model.tower(first_prev[None], box))
+    def make_carry(first_prev):
+        return (init_slam_state(cfg, first_prev.device),
+                model.tower(first_prev[None], box))
 
     return step, make_carry
 
@@ -111,8 +93,9 @@ def run_sequence_fused(model, frames: list,
                        device: str | torch.device = "cuda",
                        box=None) -> dict:
     """Frames (data/synthetic.py schema) -> per-frame outputs as numpy:
-    rel_q [F, 4], rel_t [F, 3], odom_q [F, 4], odom_t [F, 3] and the
-    network output flow [F, N, 3 | 4] (flow + seg logit of the pair
+    the map pose pose_q [F, 4] / pose_t [F, 3], odom_q / odom_t, rel_q /
+    rel_t, is_keyframe [F] bool, n_features and n_dyn_over [F] int32, and
+    the network output flow [F, N, 3 | 4] (flow + seg logit of the pair
     (frame k-1, frame k), in frame k-1's point order). ``model`` must
     already live on ``device``. ``box`` defaults to the ``sequence_box`` of
     the frames; pass a longer sequence's box to run a prefix of it."""
@@ -132,5 +115,4 @@ def run_sequence_fused(model, frames: list,
         for k in range(len(frames)):
             carry, o = step(carry, {key: v[k] for key, v in scans.items()})
             outs.append(o)
-    return {key: torch.stack([o[key] for o in outs]).float().cpu().numpy()
-            for key in outs[0]}
+    return stack_outputs(outs)

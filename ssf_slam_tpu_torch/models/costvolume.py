@@ -1,10 +1,20 @@
-"""Bidirectional attentive cost volume (ssf_slam_tpu/models/costvolume.py),
-the unfused branch: point-to-patch neighbourhoods in pc2, dual-softmax
-cross attention, a learned softmax aggregation for the forward cost and a
-scatter-softmax pushing the backward cost onto pc2.
+"""Bidirectional attentive cost volume (ssf_slam_tpu/models/costvolume.py):
+point-to-patch neighbourhoods in pc2, dual-softmax cross attention, a
+learned softmax aggregation for the forward cost and a scatter-softmax
+pushing the backward cost onto pc2.
 
 The weightnet's layers sit at the cost volume's top level of the parameter
 tree (``flow0_r/Dense_0``, ``flow0_r/BatchNorm_0``, ...), as in Flax.
+
+With ``fuse_attention`` the attention -> weightnet -> forward aggregation
+chain runs as one kernel (``ops/attention.py::cost_attention_fused``) under
+the JAX package's condition: banded backend, eval mode, a band plan for the
+forward search, and N1 a multiple of 256. The kernel takes the weightnet
+with its BatchNorms folded in, in float32 (the Flax policy: weights float32,
+cast to the feature type inside). They are folded in one place,
+``fold_weights``, which ``weights.load_tflow`` calls before it casts the
+Dense layers to the compute type; loading a state dict drops them, and the
+fused branch raises until they are folded again.
 """
 
 from __future__ import annotations
@@ -16,7 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssf_slam_tpu_torch.models.layers import BatchNorm, Dense, PointMLP
-from ssf_slam_tpu_torch.ops.attention import attention_xla
+from ssf_slam_tpu_torch.ops.attention import (
+    cost_attention_fused,
+    cost_attention_xla,
+    fold_weightnet,
+)
 from ssf_slam_tpu_torch.ops.neighbors import (
     nn_knn_group,
     nn_regroup,
@@ -37,10 +51,11 @@ class AttentiveCostVolume(nn.Module):
                  mlp: Sequence[int], flow_mlp: Sequence[int],
                  use_flow: bool = True, out_channels: int = 3,
                  flow_clamp: float = 50.0, backend: str = "xla",
-                 extent: float = 64.0):
+                 extent: float = 64.0, fuse_attention: bool = False):
         super().__init__()
         self.nsample, self.use_flow = nsample, use_flow
         self.flow_clamp, self.backend, self.extent = flow_clamp, backend, extent
+        self.fuse_attention = fuse_attention
         c = mlp[-1]
         sf = [sf_dim] if sf_dim else []
         self.mlp_q = PointMLP([d1, d2], mlp)
@@ -55,11 +70,48 @@ class AttentiveCostVolume(nn.Module):
         self.mlp_patch = PointMLP([c, c, *sf, 3], mlp)
         self.mlp_flow = PointMLP(c, flow_mlp)
         self.fc = Dense(flow_mlp[-1], out_channels)
+        # the folded weightnet (float32 buffers, outside the state dict)
+        # once fold_weights() has run
+        self._fold_names = tuple(f"wn_folded_{i}" for i in range(6))
+        for name in self._fold_names:
+            self.register_buffer(name, None, persistent=False)
+        self._register_load_state_dict_pre_hook(self._drop_folded)
+
+    def _drop_folded(self, *args, **kwargs) -> None:
+        """New weights make the folded copy stale."""
+        for name in self._fold_names:
+            setattr(self, name, None)
 
     def weightnet(self, x: Tensor) -> Tensor:
         x = F.relu(self.BatchNorm_0(self.Dense_0(x)))
         x = F.relu(self.BatchNorm_1(self.Dense_1(x)))
         return self.Dense_2(x)
+
+    def fold_weights(self) -> tuple:
+        """Fold the weightnet's BatchNorms into its float32 Dense weights
+        (``fold_weightnet``) and keep the result on the module as
+        non-persistent buffers, which follow it across devices."""
+        layers = (self.Dense_0, self.Dense_1, self.Dense_2)
+        if any(d.weight.dtype != torch.float32 for d in layers):
+            raise TypeError("fold the weightnet before casting its Dense "
+                            "layers to the compute type")
+        params = {f"Dense_{i}": dict(kernel=d.weight.T, bias=d.bias)
+                  for i, d in enumerate(layers)}
+        stats = {}
+        for i, bn in enumerate((self.BatchNorm_0, self.BatchNorm_1)):
+            params[f"BatchNorm_{i}"] = dict(scale=bn.weight, bias=bn.bias)
+            stats[f"BatchNorm_{i}"] = dict(mean=bn.running_mean,
+                                           var=bn.running_var)
+        with torch.no_grad():
+            for name, t in zip(self._fold_names,
+                               fold_weightnet(params, stats)):
+                setattr(self, name, t.detach().contiguous())
+        return self.folded()
+
+    def folded(self) -> tuple | None:
+        """(W1, b1, W2, b2, W3, b3) of ``fold_weights``, or None."""
+        wn = tuple(getattr(self, name) for name in self._fold_names)
+        return None if wn[0] is None else wn
 
     def forward(self, xyz1, xyz2, xyz2w, points1, points2, sf=None,
                 sf_feat=None, box=None):
@@ -95,11 +147,21 @@ class AttentiveCostVolume(nn.Module):
         q_cost = self.mlp_cost(cost_input(q_feat, direction=direction_xyz))
         k_cost = self.mlp_cost(cost_input(k_feat, direction=direction_xyzw))
 
-        q_att, k_att = attention_xla(q_feat, k_feat)
-        w_q = self.weightnet(q_att)  # [B, N1, K, 1]
-        w_k_logits = self.weightnet(k_att)[..., 0]
-        weights1 = torch.softmax(w_q, dim=-2)
-        cost_fwd = torch.sum(weights1 * q_cost, dim=-2)  # [B, N1, C]
+        use_fused = (self.fuse_attention and self.backend == "banded"
+                     and not self.training and params_a is not None
+                     and xyz1.shape[1] % 256 == 0)
+        if use_fused:
+            wn = self.folded()
+            if wn is None:
+                raise RuntimeError(
+                    "fuse_attention needs the folded weightnet: load the "
+                    "weights with weights.load_tflow, or call fold_weights() "
+                    "while the Dense layers are float32")
+            cost_fwd, w_k_logits = cost_attention_fused(q_feat, k_feat,
+                                                        q_cost, wn)
+        else:
+            cost_fwd, w_k_logits = cost_attention_xla(
+                q_feat, k_feat, q_cost, lambda x: self.weightnet(x)[..., 0])
 
         cost_bwd = nn_scatter_softmax_sum(
             k_cost, w_k_logits, knn_idxw, n2, plan_b, params_b

@@ -36,9 +36,6 @@ Tensor = torch.Tensor
 class TFlow(nn.Module):
     def __init__(self, cfg: FlowNetConfig = FlowNetConfig()):
         super().__init__()
-        if cfg.fuse_attention:
-            raise NotImplementedError(
-                "the fused cost-attention kernel is not ported yet")
         self.cfg = cfg
         out_ch = 4 if cfg.joint_seg else 3
         bn, be, ext = cfg.use_bn, cfg.neighbor_backend, cfg.morton_extent
@@ -65,7 +62,8 @@ class TFlow(nn.Module):
             return AttentiveCostVolume(
                 cfg.cost_nsample, d, d, sf_dim, mlp, flow_mlp,
                 use_flow=use_flow, out_channels=out_ch,
-                flow_clamp=cfg.flow_clamp, backend=be, extent=ext)
+                flow_clamp=cfg.flow_clamp, backend=be, extent=ext,
+                fuse_attention=cfg.fuse_attention)
 
         # points1/points2 widths: up-conv features || deconv'd cost features
         self.flow3_r = cost(256, 0, (256, 256), (128, 128), False)

@@ -1,1 +1,1 @@
-"""Ego-motion from scene flow."""
+"""Ego-motion from scene flow and the plane models of the back end."""

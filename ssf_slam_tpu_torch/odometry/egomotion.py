@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ssf_slam_tpu_torch.ops.kabsch import kabsch
-from ssf_slam_tpu_torch.ops.se3 import matrix_to_quat
+from ssf_slam_tpu_torch.ops.se3 import matrix_to_quat, quat_rotate
 
 Tensor = torch.Tensor
 
@@ -29,3 +29,14 @@ def ego_motion_from_flow(pts: Tensor, flow: Tensor, static_mask: Tensor,
         w_r = w / (1.0 + r2 / (irls_sigma * irls_sigma))
         r, t = kabsch(src, pts, w_r)
     return matrix_to_quat(r), t
+
+
+def trim_static_mask(pts: Tensor, flow: Tensor, static: Tensor, q: Tensor,
+                     t: Tensor, max_resid: float) -> Tensor:
+    """``static`` restricted to points whose flow agrees with the rigid fit
+    (q, t) within ``max_resid`` m: |pts - (R(q)(pts + flow) + t)|. This
+    trimmed mask is what anchors geometry (the keyframe seg-gate)."""
+    pred = quat_rotate(q[None], pts + flow) + t[None]
+    r = pts - pred
+    r2 = (r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]) + r[:, 2] * r[:, 2]
+    return static & (r2 < max_resid * max_resid)

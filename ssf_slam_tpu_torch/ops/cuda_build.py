@@ -26,6 +26,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = {
     "ssf_band_knn": "band_knn.cu",
     "ssf_band_scatter": "band_scatter.cu",
+    "ssf_cost_attention": "cost_attention.cu",
 }
 
 _P = ctypes.c_void_p
@@ -41,6 +42,9 @@ SIGNATURES = {
     "ssf_band_scatter": {
         "ssf_regroup": [_P, _P, _P] + [_I] * 8 + [_P, _P],
         "ssf_scatter_softmax_sum": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
+    },
+    "ssf_cost_attention": {
+        "ssf_cost_attention": [_P] * 9 + [_I] * 5 + [_P, _P, _P],
     },
 }
 

@@ -13,7 +13,11 @@ Tensor = torch.Tensor
 
 
 def quat_identity(device=None) -> Tensor:
-    return torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    # filled on the device: a tensor built from a host list, or a Python
+    # number assigned by index, is a host-to-device copy the host waits for
+    q = torch.zeros(4, device=device)
+    q[3:].fill_(1.0)
+    return q
 
 
 def quat_normalize(q: Tensor, eps: float = 1e-12) -> Tensor:
@@ -39,12 +43,38 @@ def quat_multiply(q1: Tensor, q2: Tensor) -> Tensor:
     )
 
 
+def quat_conjugate(q: Tensor) -> Tensor:
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
+def cross3(a: Tensor, b: Tensor) -> Tensor:
+    """Cross product over the last axis (broadcasting), written out as
+    ``jnp.cross`` computes it."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
 def quat_rotate(q: Tensor, v: Tensor) -> Tensor:
     """Rotate vectors v [..., 3] by quaternion q [..., 4] (broadcasting)."""
     qv, qw = q[..., :3], q[..., 3:4]
-    qv, v = torch.broadcast_tensors(qv, v)
-    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
-    return v + qw * t + torch.linalg.cross(qv, t, dim=-1)
+    t = 2.0 * cross3(qv, v)
+    return v + qw * t + cross3(qv, t)
+
+
+def quat_to_matrix(q: Tensor) -> Tensor:
+    """[..., 4] -> [..., 3, 3] rotation matrix."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
 
 
 def matrix_to_quat(m: Tensor) -> Tensor:
@@ -81,9 +111,61 @@ def matrix_to_quat(m: Tensor) -> Tensor:
     return quat_normalize(q)
 
 
+def quat_to_rpy(q: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """Quaternion -> (roll, pitch, yaw), ZYX convention."""
+    x, y, z, w = q.unbind(-1)
+    roll = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    return roll, pitch, yaw
+
+
+def so3_exp_quat(w: Tensor) -> Tensor:
+    """so(3) vector [..., 3] -> unit quaternion (exponential map), with
+    the small-angle series below theta^2 = 1e-12."""
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    half = 0.5 * theta
+    small = theta2 > 1e-12
+    k = torch.where(small, torch.sin(half) / theta, 0.5 - theta2 / 48.0)
+    qw = torch.where(small[..., 0], torch.cos(half[..., 0]),
+                     1.0 - theta2[..., 0] / 8.0)
+    return torch.cat([w * k, qw[..., None]], dim=-1)
+
+
+def so3_log_quat(q: Tensor) -> Tensor:
+    """Unit quaternion -> so(3) vector (inverse of so3_exp_quat), sign-
+    canonicalised so the geodesic is the short way."""
+    w0 = q[..., 3:4]
+    q = q * torch.sign(torch.where(w0 == 0, torch.ones_like(w0), w0))
+    xyz = q[..., :3]
+    w = torch.clamp(q[..., 3], -1.0, 1.0)
+    s = torch.linalg.norm(xyz, dim=-1)
+    half = torch.atan2(s, w)
+    k = torch.where(s > 1e-8, 2.0 * half / torch.clamp(s, min=1e-24),
+                    2.0 / torch.clamp(w, min=1e-8))
+    return xyz * k[..., None]
+
+
 def pose_compose(pose_ab, pose_bc):
     """T_ac = T_ab * T_bc (q_0_curr = q_0_last * q_last_curr;
     t_0_curr = t_0_last + q_0_last * t_last_curr)."""
     q_ab, t_ab = pose_ab
     q_bc, t_bc = pose_bc
     return quat_multiply(q_ab, q_bc), t_ab + quat_rotate(q_ab, t_bc)
+
+
+def pose_inverse(pose):
+    q, t = pose
+    qi = quat_conjugate(q)
+    return qi, -quat_rotate(qi, t)
+
+
+def pose_apply(pose, p: Tensor) -> Tensor:
+    q, t = pose
+    return quat_rotate(q, p) + t
+
+
+def pose_between(pose_a, pose_b):
+    """T_a^-1 * T_b, the relative pose (gtsam Pose3::between)."""
+    return pose_compose(pose_inverse(pose_a), pose_b)

@@ -57,12 +57,18 @@ def load_tflow(cfg: FlowNetConfig, path: str = DEFAULT_NPZ,
                device: str | torch.device = "cuda"):
     """TFlow with the committed weights, in eval mode on ``device``; Dense
     weights in the config's compute type (BatchNorm stays float32, as
-    Flax computes it)."""
+    Flax computes it). With ``fuse_attention`` the cost volumes' weightnets
+    are folded first, from the float32 weights."""
+    from ssf_slam_tpu_torch.models.costvolume import AttentiveCostVolume
     from ssf_slam_tpu_torch.models.tflow import TFlow
 
     dev = resolve_device(device)
     model = TFlow(cfg)
     model.load_state_dict(from_flax(load_npz(path)), strict=True)
+    if cfg.fuse_attention:
+        for m in model.modules():
+            if isinstance(m, AttentiveCostVolume):
+                m.fold_weights()
     dtype = getattr(torch, cfg.dtype)
     for m in model.modules():
         if isinstance(m, Dense):

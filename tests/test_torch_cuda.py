@@ -10,7 +10,13 @@ Inputs: Morton-sorted lidar-like clouds (B=2, N=1024, M=2048, C=16) from a
 numpy seed. Tolerances: sqdist, idx, grouped and regroup EXACT; knn_idw
 (float32) 1e-5 relative + 1e-6 absolute (the same float32 operations, so
 in practice equal); scatter_softmax_sum 1e-5 relative + 1e-6 absolute, for
-the float32 atomics' run-to-run order.
+the float32 atomics' run-to-run order. cost_attention ([2, 512, 16, 64]
+patches from a seed): float32 within 1e-4 (sum orders); bf16 cost_fwd
+within one bf16 step of its value on 99.99 % of the elements and within two
+steps of (|value| + rms) everywhere, w_k within 1e-3 on 99.99 % and 4e-3
+everywhere (chip_smoke.py's COST_ATTENTION_TOL explains the rounding flips
+behind these, and leaves more room for its network-made inputs, which vary
+from run to run).
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from ssf_slam_tpu_torch.ops import banded
+from ssf_slam_tpu_torch.ops import attention, banded
 from ssf_slam_tpu_torch.ops import neighbors as nb
 
 B, N, M, K, C = 2, 1024, 2048, 8, 16
@@ -107,3 +113,35 @@ def test_cuda_wrappers_reject_bad_inputs(case):
     with pytest.raises(ValueError):  # mixed devices
         banded.regroup(c["plan"][0].cpu().reshape(B, -1, 1).expand(
             -1, -1, K).contiguous(), c["feats"], c["plan"], PARAMS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_cost_attention_matches_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    q, k, qc = (0.3 * torch.randn(2, 512, 16, 64, device="cuda",
+                                  generator=gen) for _ in range(3))
+    q, k, qc = q.to(dt), k.to(dt), qc.to(dt)
+    wn = tuple(0.3 * torch.randn(*s, device="cuda", generator=gen)
+               for s in [(64, 64), (64,), (64, 32), (32,), (32, 1), (1,)])
+    before = attention.LAUNCHES["cost_attention"]
+    cf, wk = attention.cost_attention_fused(q, k, qc, wn)
+    assert attention.LAUNCHES["cost_attention"] == before + 1
+    pcf, pwk = attention.cost_attention_plain(q, k, qc, wn)
+    assert cf.dtype == dt and wk.dtype == torch.float32
+    if dtype == "float32":
+        torch.testing.assert_close(cf, pcf, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(wk, pwk, rtol=1e-4, atol=1e-4)
+    else:
+        err, ref = (cf.float() - pcf.float()).abs(), pcf.float().abs()
+        rms = ref.pow(2).mean().sqrt()
+        assert (err <= 1e-6 + 2.0 ** -8 * ref).float().mean() >= 0.9999
+        assert bool((err <= 2.0 ** -7 * (ref + rms)).all()), err.max().item()
+        ew = (wk - pwk).abs()
+        assert (ew <= 1e-3).float().mean() >= 0.9999
+        assert ew.max().item() <= 4e-3
+    with pytest.raises(TypeError):  # mixed feature types
+        attention.cost_attention_fused(q, k, qc.double(), wn)

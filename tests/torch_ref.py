@@ -2,7 +2,8 @@
 
 Everything here runs the JAX package (the reference) on the CPU and hands
 numpy arrays to the tests, which feed the same arrays to
-``ssf_slam_tpu_torch``. Not a test module: pytest collects nothing here.
+``ssf_slam_tpu_torch``, or makes the port round as the JAX package does on
+the CPU. Not a test module: pytest collects nothing here.
 """
 
 from __future__ import annotations
@@ -80,3 +81,47 @@ def load_npz_variables(path: str = WEIGHTS_NPZ) -> dict:
     """The committed npz as a Flax variables dict (numpy leaves)."""
     with np.load(path) as z:
         return unflatten({k: z[k] for k in z.files})
+
+
+def xla_cpu_sqdist(x, y):
+    """``ssf_slam_tpu_torch.ops.knn.pairwise_sqdist`` rounded as XLA's CPU
+    compiler rounds the JAX package's jitted kNN: every xyz dot (the
+    squares and the cross term) is fma(z, z', fma(y, y', x * x')). Each
+    float32 product is exact in float64, so only the sums round (then once
+    more to float32). The mapping back end thresholds and orders the
+    expansion distances of ``knn(rerank=False)`` as they are, so its parity
+    tests need the reference's rounding; the port itself takes the plain
+    float32 expansion on every device."""
+    import torch
+
+    def dot3(a, b):
+        ad, bd = a.double(), b.double()
+        c = (a[..., 0] * b[..., 0]).double()
+        c = (ad[..., 1] * bd[..., 1] + c).float().double()
+        return (ad[..., 2] * bd[..., 2] + c).float()
+
+    x2, y2 = dot3(x, x)[..., :, None], dot3(y, y)[..., None, :]
+    cross = dot3(x[..., :, None, :], y[..., None, :, :])
+    return torch.clamp(x2 - 2.0 * cross + y2, min=0.0)
+
+
+def round_knn_like_xla_cpu(monkeypatch) -> None:
+    """Make the port's ``knn(rerank=False)`` distances round as
+    ``xla_cpu_sqdist`` for one test (pytest's ``monkeypatch`` undoes it).
+    A re-ranked search keeps the plain expansion: its exact re-rank makes
+    the candidate pass's rounding irrelevant, and the emulation costs some
+    ten times the plain expansion on the CPU."""
+    from ssf_slam_tpu_torch.ops import knn
+
+    plain_chunk, plain_sqdist = knn._knn_chunk, knn.pairwise_sqdist
+
+    def chunk(query, points, k, points_mask, slack, rerank):
+        if rerank:
+            return plain_chunk(query, points, k, points_mask, slack, rerank)
+        knn.pairwise_sqdist = xla_cpu_sqdist
+        try:
+            return plain_chunk(query, points, k, points_mask, slack, rerank)
+        finally:
+            knn.pairwise_sqdist = plain_sqdist
+
+    monkeypatch.setattr(knn, "_knn_chunk", chunk)
