@@ -9,15 +9,16 @@ printing its own line and failing loudly:
 
 1. build: compile every CUDA source of the port with nvcc (all at once)
    and print the card's name and power limit;
-2. kernels: each of the five kernels at its largest main-path shape, on
+2. kernels: each of the nine kernels at its largest main-path shape, on
    Morton-sorted clouds of the bench sequence (the cost attention on the
    level-0 cost volume's own inputs, with the folded weightnet of the
    committed flow0_r), held against its plain PyTorch version on the card
    (exact: idx, sqdist, grouped, regroup; knn_idw's bf16 output to one bf16
    rounding step, 2^-8 relative + 1e-6 absolute; scatter_softmax_sum to
    1e-5 relative + 1e-5 absolute for the atomics' run-to-run order;
-   cost_attention as stated and justified at COST_ATTENTION_TOL), and
-   timed with CUDA
+   cost_attention as stated and justified at COST_ATTENTION_TOL; knn and
+   knn_group2 exact; scatter_add as the scatter; attention as stated at
+   ATTENTION_TOL), and timed with CUDA
    events beside the plain version, one PyTorch library call where one
    computes the same function, and the bound of the card;
 3. f32: the committed weights over the first 8 bench frames through the
@@ -33,23 +34,44 @@ printing its own line and failing loudly:
    the map pose (pose_t) and of the odometry (odom_t) against the
    generator's ground-truth poses;
 5. the main path with fuse_attention on: the same 32 frames and checks,
-   with two cost_attention launches per scan.
+   with two cost_attention launches per scan;
+6. entry: the neighbour engine's and the attention module's remaining
+   entry points (nn_knn, nn_knn_group2 and attention_fused, the last two
+   with their gradients) at the level-0 shapes, counters reset just before
+   and read just after: one launch each of knn, knn_group2 and attention,
+   two of scatter_add;
+7. train: the training path at full width (8192 points, joint seg, bf16,
+   banded, batch 4), warm-started from the committed weights with a fresh
+   optimizer, on a corpus of 2 worlds x 4 frames with label weights: the
+   forward's and the backward's launches of one step; a few steps of the
+   train loop (counters reset just before and read just after; steps/s,
+   samples/s, peak memory), one eval pass (EPE, mIoU); the loss on one
+   fixed batch falling over 8 steps at TRAIN_LR; the first step's f32
+   gradients with the backward's scatter_add against its plain version;
+   and the f32 train step against the JAX fixture
+   tests/fixtures/torch_port/ssf_train_ref.npz (loss 1e-4 relative, each
+   leaf's gradient norm 1e-3 relative, the new batch statistics 1e-4).
 
 With ``--profile DIR`` it then runs phases 5 and 4 three times more in
 turns (so that each setting runs first as often as the other) and prints
 their scans/s side by side, traces 8 scans of each main path with
 torch.profiler, writes device time by kernel to DIR/profile_<name>.txt and
-counts the host syncs per scan by the port's source lines.
+counts the host syncs per scan by the port's source lines; phase 7 then
+also traces two train steps (DIR/profile_train.txt). With ``--serve NPZ``
+it only builds and runs phase 4 with the weights of NPZ (a ``best.npz`` of
+``python -m ssf_slam_tpu_torch.train.train_ssf``).
 
 The last two lines of standard output are the kernels JSON object and the
 result JSON object; the card's name and power limit come before them.
-Exits nonzero, printing no result, when CUDA is absent or any phase fails.
+Exits nonzero, printing no result, when CUDA is absent or any phase fails
+(a failed check raises; nothing catches it).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,6 +98,19 @@ PER_TOWER = {"knn_group": 4, "knn_idw": 0, "scatter_softmax_sum": 0,
 # the fused cost attention runs in the two banded cost volumes (flow0_r at
 # 8192 points, flow1_r at 2048) when fuse_attention is on
 PER_SCAN_FUSED = {"cost_attention": 2}
+# one train step at 8192 points (batch 4, no tower caching): the forward
+# runs both towers (4 knn_group each) and one head (2 banded cost volumes:
+# 2 knn_group, 1 scatter, 1 regroup each; 6 knn_idw); the backward sums
+# segments for each grouping whose features carry gradient (12), each
+# regroup (2) and each IDW upsampling (4): point_warping's 2 IDW calls get
+# no cotangent, as the warped cloud only feeds a kNN's indices
+PER_STEP_FWD = {"knn_group": 12, "knn_idw": 6, "scatter_softmax_sum": 2,
+                "regroup": 2}
+PER_STEP_BWD = {"scatter_add": 18}
+# the entry-point phase: one call of each, with gradients where they have
+PER_ENTRY = {"knn": 1, "knn_group2": 1, "attention": 1, "scatter_add": 2}
+TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS, DESCENT_STEPS = 4, 1e-4, 4, 8
+TRAIN_FIXTURE = os.path.join(FIXTURES, "ssf_train_ref.npz")
 
 KERNELS = {  # name -> (CUDA source, the Pallas call it replaces)
     "knn_group": ("ssf_slam_tpu_torch/csrc/band_knn.cu",
@@ -88,6 +123,14 @@ KERNELS = {  # name -> (CUDA source, the Pallas call it replaces)
                 "ssf_slam_tpu/ops/banded.py:613"),
     "cost_attention": ("ssf_slam_tpu_torch/csrc/cost_attention.cu",
                        "ssf_slam_tpu/ops/attention.py:287"),
+    "knn": ("ssf_slam_tpu_torch/csrc/band_knn.cu",
+            "ssf_slam_tpu/ops/banded.py:228"),
+    "knn_group2": ("ssf_slam_tpu_torch/csrc/band_knn.cu",
+                   "ssf_slam_tpu/ops/banded.py:430"),
+    "attention": ("ssf_slam_tpu_torch/csrc/attention.cu",
+                  "ssf_slam_tpu/ops/attention.py:90"),
+    "scatter_add": ("ssf_slam_tpu_torch/csrc/band_scatter.cu",
+                    "ssf_slam_tpu/ops/banded.py:709"),
 }
 # cost_attention against its plain version on the card, bf16. The kernel
 # sums in its own order (sequential FMAs) and the plain version in
@@ -104,6 +147,12 @@ KERNELS = {  # name -> (CUDA source, the Pallas call it replaces)
 # everywhere. A wrong kernel misses on most elements.
 COST_ATTENTION_TOL = dict(cf_rel=2.0 ** -8, cf_abs=1e-6, cf_all=2.0 ** -6,
                           wk_abs=1e-3, wk_all=1e-2, share=0.9995)
+# attention against its plain version, bf16: the outputs round once from a
+# float32 sum that the two take in different orders, so a sum near a
+# rounding boundary lands on the neighbouring bf16 value: held within one
+# bf16 step (2^-7 of the value) on 99.99 % of the elements and within two
+# steps of (|value| + rms) everywhere, as tests/test_torch_cuda.py holds it
+ATTENTION_TOL = dict(step=2.0 ** -7, share=0.9999, all_steps=2.0)
 
 
 class PhaseError(RuntimeError):
@@ -184,16 +233,10 @@ def bench_frames(n: int = N_FRAMES):
 
 def phase_kernels(frames, dev) -> dict:
     """Returns {name: kernel record without launches}."""
-    from ssf_slam_tpu_torch.engine.fused import sequence_box, stack_fused_scans
     from ssf_slam_tpu_torch.ops import banded
     from ssf_slam_tpu_torch.ops import neighbors as nb
 
-    scans = stack_fused_scans(frames, N_POINTS)
-    box = sequence_box(scans["points"], device=dev)
-    pc1, _ = nb.morton_sort(torch.as_tensor(scans["points"][0:1],
-                                            device=dev), box=box)
-    pc2, _ = nb.morton_sort(torch.as_tensor(scans["points"][1:2],
-                                            device=dev), box=box)
+    pc1, pc2, box = sorted_pair(frames, dev)
     sparse2 = pc2[:, ::4].contiguous()  # a sorted 2048-point level-1 cloud
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -291,7 +334,68 @@ def phase_kernels(frames, dev) -> dict:
         library_ms=cuda_ms(lambda: torch.index_select(cost[0], 0, flat_idx)),
         bound=bound(n * k * 4 + N_POINTS * c * bf16 + n * k * c * bf16, 0))
 
-    out["cost_attention"] = kernel_cost_attention(frames, dev)
+    # knn: the level-0 searches' top-k alone, 8192 x 8192, k = 16
+    k, n, m = 16, N_POINTS, N_POINTS
+    got = banded.knn(pc1, pc2, k, plan_l0, params_l0)
+    want = banded.knn_plain(pc1, pc2, k, plan_l0, params_l0)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "kernels", "knn sqdist/idx differ")
+    wb = params_l0[1] * params_l0[2]
+    out["knn"] = dict(
+        max_abs_err=0.0, shape=f"{n}x{m} k={k} f32",
+        ms=cuda_ms(lambda: banded.knn(pc1, pc2, k, plan_l0, params_l0)),
+        plain_ms=cuda_ms(lambda: banded.knn_plain(pc1, pc2, k, plan_l0,
+                                                  params_l0)),
+        library_ms=None,  # no one call computes a banded top-k
+        bound=bound((n + m) * 3 * f32 + n * k * (2 * 4), n * wb * 8))
+
+    # knn_group2: the cost volume's twin searches, query xyz1 + coarse
+    # flow and xyz1, targets xyz2 and a warped copy of it, feats
+    # xyz2 || points2 (C = 99 f32), under the plan of the first pair
+    c = 99
+    qb = (pc1 + 0.05 * randn(1, N_POINTS, 3)).contiguous()
+    pb = (pc2 + 0.05 * randn(1, N_POINTS, 3)).contiguous()
+    feats = randn(1, N_POINTS, c)
+    got = banded.knn_group2(pc1, qb, pc2, pb, feats, k, plan_l0, params_l0)
+    want = banded.knn_group2_plain(pc1, qb, pc2, pb, feats, k, plan_l0,
+                                   params_l0)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "kernels",
+          "knn_group2 outputs differ")
+    out["knn_group2"] = dict(
+        max_abs_err=0.0, shape=f"2x {n}x{m} k={k} C={c} f32",
+        ms=cuda_ms(lambda: banded.knn_group2(pc1, qb, pc2, pb, feats, k,
+                                             plan_l0, params_l0)),
+        plain_ms=cuda_ms(lambda: banded.knn_group2_plain(
+            pc1, qb, pc2, pb, feats, k, plan_l0, params_l0)),
+        library_ms=None,
+        bound=bound(2 * (n + m) * 3 * f32 + m * c * f32
+                    + 2 * (n * k * (2 * 4) + n * k * c * f32),
+                    2 * n * wb * 8))
+
+    # scatter_add: the backward of the level-0 cost volume's grouping, the
+    # f32 cotangent [8192, 16, 99] summed into 8192 rows
+    vals = randn(1, N_POINTS, k, c)
+    got = banded.scatter_add(idx_l0, vals, plan_l0, params_l0, N_POINTS)
+    want = banded.scatter_add_plain(idx_l0, vals, plan_l0, params_l0,
+                                    N_POINTS)
+    err = (got - want).abs()
+    check(bool((err <= 1e-5 + 1e-5 * want.abs()).all()), "kernels",
+          f"scatter_add differs by {err.max().item()}")
+    flat_vals = vals.reshape(-1, c)
+    acc = torch.zeros(N_POINTS, c, device=dev)
+    out["scatter_add"] = dict(
+        max_abs_err=err.max().item(), shape=f"N={n} K={k} C={c} f32",
+        ms=cuda_ms(lambda: banded.scatter_add(idx_l0, vals, plan_l0,
+                                              params_l0, N_POINTS)),
+        plain_ms=cuda_ms(lambda: banded.scatter_add_plain(
+            idx_l0, vals, plan_l0, params_l0, N_POINTS)),
+        library_ms=cuda_ms(lambda: acc.index_add_(0, flat_idx, flat_vals)),
+        bound=bound(n * k * 4 + n * k * c * f32 + N_POINTS * c * f32,
+                    n * k * c))
+
+    inputs = cost_attention_inputs(frames, dev)
+    out["cost_attention"] = kernel_cost_attention(*inputs)
+    out["attention"] = kernel_attention(inputs[0], inputs[1])
     for name, r in out.items():
         say("kernels", f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
@@ -327,10 +431,9 @@ def cost_attention_inputs(frames, dev):
     return max(seen, key=lambda a: a[0].shape[1])
 
 
-def kernel_cost_attention(frames, dev) -> dict:
+def kernel_cost_attention(q, k, qc, wn) -> dict:
     from ssf_slam_tpu_torch.ops import attention
 
-    q, k, qc, wn = cost_attention_inputs(frames, dev)
     _, n, kk, c = q.shape
     c2 = wn[2].shape[1]
     got = attention.cost_attention_fused(q, k, qc, wn)
@@ -374,6 +477,40 @@ def kernel_cost_attention(frames, dev) -> dict:
         # a weighted reduction)
         library_ms=None,
         bound=bound(nbytes, flops, PEAK_BF16))
+
+
+def kernel_attention(q, k) -> dict:
+    """The dual-softmax attention alone on the level-0 cost volume's
+    q_feat / k_feat (bf16 [1, 8192, 16, 64])."""
+    from ssf_slam_tpu_torch.ops import attention
+
+    _, n, kk, c = q.shape
+    got = attention.attention_fused(q, k)
+    want = attention.attention_plain(q, k)
+    tol = ATTENTION_TOL
+    shares, worst = [], 0.0
+    for g, w in zip(got, want):
+        check(g.dtype == w.dtype == q.dtype, "kernels", "attention types")
+        err, ref = (g.float() - w.float()).abs(), w.float().abs()
+        rms = ref.pow(2).mean().sqrt()
+        shares.append((err <= 1e-6 + tol["step"] * ref).float().mean().item())
+        worst = max(worst, (err / (tol["step"] * (ref + rms))).max().item())
+    say("kernels", f"attention agreement: within one bf16 step on "
+        f"{min(shares):.6f}, at most {worst:.3f} steps of (|value| + rms)")
+    check(min(shares) >= tol["share"] and worst <= tol["all_steps"],
+          "kernels", f"attention: {min(shares):.6f} within one step, "
+          f"{worst:.3f} steps at most")
+    max_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+    # S, q' and k': 3 K*K*C multiply-adds per point in float32 on CUDA
+    # cores; two bf16 inputs read and two outputs written
+    return dict(
+        max_abs_err=max_err, shape=f"[{n},{kk},{c}] bf16",
+        ms=cuda_ms(lambda: attention.attention_fused(q, k)),
+        plain_ms=cuda_ms(lambda: attention.attention_plain(q, k)),
+        # no one call computes the dual-softmax product
+        library_ms=None,
+        bound=bound(4 * n * kk * c * 2, 2 * n * 3 * kk * kk * c))
 
 
 # ---------------------------------------------------------------------------
@@ -459,6 +596,67 @@ def phase_f32(frames, dev, n: int = N_FIXTURE_FRAMES) -> None:
           f"fused flow mean EPD {epd} m")
 
 
+def sorted_pair(frames, dev):
+    """Bench frames 0 and 1 Morton-sorted under the sequence box, as the
+    level-0 cost volume sees them: (pc1, pc2, box)."""
+    from ssf_slam_tpu_torch.engine.fused import sequence_box, stack_fused_scans
+    from ssf_slam_tpu_torch.ops import neighbors as nb
+
+    scans = stack_fused_scans(frames, N_POINTS)
+    box = sequence_box(scans["points"], device=dev)
+    pcs = [nb.morton_sort(torch.as_tensor(scans["points"][i:i + 1],
+                                          device=dev), box=box)[0]
+           for i in (0, 1)]
+    return pcs[0], pcs[1], box
+
+
+def phase_entry(frames, dev) -> dict:
+    """The remaining entry points of the neighbour engine and the attention
+    module at the level-0 shapes, with gradients: nn_knn, nn_knn_group2
+    (the cost volume's twin searches, feats xyz2 || points2) and
+    attention_fused (on the level-0 cost volume's q_feat / k_feat)."""
+    from ssf_slam_tpu_torch.ops import attention
+    from ssf_slam_tpu_torch.ops import neighbors as nb
+
+    pc1, pc2, box = sorted_pair(frames, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flow = 0.05 * torch.randn(1, N_POINTS, 3, generator=gen, device=dev)
+    feats = torch.randn(1, N_POINTS, 99, generator=gen, device=dev)
+    feats.requires_grad_()
+    q, k = (t.clone().requires_grad_()
+            for t in cost_attention_inputs(frames, dev)[:2])
+    torch.cuda.synchronize()
+    reset_all()
+    d, idx = nb.nn_knn(pc1, pc2, 16, "banded", box=box)
+    ia, ga, ib, gb, _, _ = nb.nn_knn_group2(pc1 + flow, pc1, pc2, pc2 + flow,
+                                            feats, 16, "banded", box=box)
+    (ga.sum() + 2.0 * gb.sum()).backward()
+    qa, ka = attention.attention_fused(q, k)
+    (qa.float().sum() + 2.0 * ka.float().sum()).backward()
+    torch.cuda.synchronize()
+    launches = read_all()
+    for name, t in (("knn sqdist", d), ("knn_group2 grouped", ga),
+                    ("knn_group2 feats grad", feats.grad),
+                    ("attention", qa.float()), ("attention q grad", q.grad),
+                    ("attention k grad", k.grad)):
+        check(bool(torch.isfinite(t).all()), "entry", f"non-finite {name}")
+    # each grouped row is one feats row: its gradient counts how many
+    # times (weights 1 and 2) the row was picked
+    picks = torch.zeros(N_POINTS, device=dev)
+    picks.index_add_(0, ia.reshape(-1).long(), torch.ones(ia.numel(),
+                                                           device=dev))
+    picks.index_add_(0, ib.reshape(-1).long(),
+                     torch.full((ib.numel(),), 2.0, device=dev))
+    check(torch.equal(feats.grad[0], picks[:, None].expand(-1, 99)),
+          "entry", "nn_knn_group2's gradient is not the pick count")
+    say("entry", f"nn_knn, nn_knn_group2 and attention_fused with their "
+        f"gradients: launches {launches}")
+    for name, want in PER_ENTRY.items():
+        check(launches[name] == want, "entry",
+              f"{name} launched {launches[name]} times, expected {want}")
+    return launches
+
+
 def reset_all() -> None:
     from ssf_slam_tpu_torch.ops import attention, banded
 
@@ -472,24 +670,27 @@ def read_all() -> dict:
     return {**banded.LAUNCHES, **attention.LAUNCHES}
 
 
-def bf16_model(dev, fuse: bool):
+def bf16_model(dev, fuse: bool, weights: str | None = None):
     from ssf_slam_tpu_torch.config import FlowNetConfig
-    from ssf_slam_tpu_torch.weights import load_tflow
+    from ssf_slam_tpu_torch.weights import DEFAULT_NPZ, load_tflow
 
     return load_tflow(FlowNetConfig(npoint=N_POINTS, joint_seg=True,
                                     dtype="bfloat16",
                                     neighbor_backend="banded",
-                                    fuse_attention=fuse), device=dev)
+                                    fuse_attention=fuse),
+                      path=weights or DEFAULT_NPZ, device=dev)
 
 
-def phase_main(frames, dev, fuse: bool) -> tuple[dict, dict]:
-    """The whole step over the 32 bench frames; the counters are reset just
-    before the run and read just after it."""
+def phase_main(frames, dev, fuse: bool,
+               weights: str | None = None) -> tuple[dict, dict]:
+    """The whole step over the 32 bench frames (the committed weights, or
+    the npz ``weights``); the counters are reset just before the run and
+    read just after it."""
     from ssf_slam_tpu_torch.engine.evaluation import ate_rmse
     from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
 
     phase = "main-fused" if fuse else "main"
-    model = bf16_model(dev, fuse)
+    model = bf16_model(dev, fuse, weights)
     run_sequence_fused(model, frames[:2], device=dev)  # warm-up
     torch.cuda.synchronize()
     reset_all()
@@ -597,15 +798,285 @@ def phase_profile(frames, dev, host_ms_per_scan: float, out_dir: str,
         say("profile", f"{count:4d} syncs  {site}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+
+# each cost volume's weightnet output bias shifts every logit of a
+# per-segment softmax alike: its gradient is zero in exact arithmetic, and
+# what is computed is rounding noise (about 1e-8 of the largest leaf norm)
+ZERO_GRAD = re.compile(r"params/flow\d_r/Dense_2/bias$")
+
+
+def _leaf_errors(got: dict, want: dict) -> dict:
+    """{leaf: |got - want| / (|want| + 1e-6 s)} of flat float arrays (of
+    norms, for scalars), s the largest leaf norm (the 1e-6 s keeps dead
+    leaves, exactly zero, from dividing by zero); a zero-gradient leaf
+    (ZERO_GRAD) instead reports the larger of its two norms over 1e-3 s,
+    so that it passes a 1e-3 check while it is noise below 1e-6 s."""
+    scale = max(float(np.linalg.norm(w)) for w in want.values())
+    out = {}
+    for k, w in want.items():
+        if ZERO_GRAD.search(k):
+            out[k] = max(float(np.linalg.norm(got[k])),
+                         float(np.linalg.norm(w))) / (1e-3 * scale)
+        else:
+            out[k] = float(np.linalg.norm(got[k] - w)) / (
+                float(np.linalg.norm(w)) + 1e-6 * scale)
+    return out
+
+
+def _grads(model, batch, loss_cfg, retain=False):
+    """(loss, flat Flax gradients, autograd inputs) of one train-mode
+    forward and backward."""
+    from ssf_slam_tpu_torch.train.trainer import forward_loss
+    from ssf_slam_tpu_torch.weights import to_flax
+
+    model.train()
+    params = dict(model.named_parameters())
+    loss, _ = forward_loss(model, batch, loss_cfg)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                retain_graph=retain)
+    return loss, to_flax(model, dict(zip(params, grads))), (loss, params)
+
+
+def phase_train(dev, profile_dir: str | None = None) -> dict:
+    """The training path (module docstring, phase 7). Returns the train
+    loop's launch counts. With ``profile_dir``, also the device time of two
+    train steps by kernel (``profile_train``)."""
+    from ssf_slam_tpu_torch.config import (FlowNetConfig, LossConfig,
+                                           TrainConfig)
+    from ssf_slam_tpu_torch.data.carla import compute_label_weights
+    from ssf_slam_tpu_torch.ops import banded
+    from ssf_slam_tpu_torch.ops import neighbors as nb
+    from ssf_slam_tpu_torch.train.harness import batcher
+    from ssf_slam_tpu_torch.train.train_ssf import build_corpus
+    from ssf_slam_tpu_torch.train.trainer import (
+        create_train_state,
+        forward_loss,
+        make_eval_step,
+        make_train_step,
+        to_device,
+    )
+    from ssf_slam_tpu_torch.weights import load_tflow, to_flax
+
+    t0 = time.perf_counter()
+    train, held_out = build_corpus(2, 4, eval_frames=TRAIN_BATCH)
+    lw = compute_label_weights(train)
+    loss_cfg = LossConfig(seg_class_weights=(float(lw[0]), float(lw[1])))
+    say("train", f"corpus {len(train)} pairs + {len(held_out)} held out in "
+        f"{time.perf_counter() - t0:.1f} s; label weights {lw.tolist()}; "
+        f"lr {TRAIN_LR}")
+    net = dict(npoint=N_POINTS, joint_seg=True, neighbor_backend="banded")
+    cfg = FlowNetConfig(**net, dtype="bfloat16")
+    tcfg = TrainConfig(lr=TRAIN_LR, batch_size=TRAIN_BATCH)
+    batches = [to_device(b, dev) for b in
+               batcher(train, TRAIN_BATCH, [tcfg.seed])()]
+    model = load_tflow(cfg, device=dev)
+    state, tx = create_train_state(model, tcfg)
+
+    # one step by hand: the forward's and the backward's launches
+    reset_all()
+    nb.SEGMENT_SUMS["backward"] = 0
+    model.train()
+    params = state.params
+    loss, _ = forward_loss(model, batches[0], loss_cfg)
+    torch.cuda.synchronize()
+    fwd = read_all()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    bwd = {k: v - fwd[k] for k, v in read_all().items()}
+    tx.update(dict(zip(params, grads)), state.opt_state, params)
+    state.step += 1
+    say("train", f"launches of one step: forward "
+        f"{ {k: v for k, v in fwd.items() if v} }, backward "
+        f"{ {k: v for k, v in bwd.items() if v} } "
+        f"({nb.SEGMENT_SUMS['backward']} segment sums asked)")
+    for name, want in PER_STEP_FWD.items():
+        check(fwd[name] == want, "train",
+              f"forward: {name} launched {fwd[name]} times, expected {want}")
+    check(bwd["scatter_add"] == PER_STEP_BWD["scatter_add"]
+          == nb.SEGMENT_SUMS["backward"], "train",
+          f"backward: scatter_add launched {bwd['scatter_add']} times, "
+          f"segment sums {nb.SEGMENT_SUMS['backward']}, expected "
+          f"{PER_STEP_BWD['scatter_add']}")
+    check(sum(bwd.values()) == bwd["scatter_add"], "train",
+          f"the backward launched other kernels: {bwd}")
+
+    # the train loop: the main path, counters reset just before it
+    step = make_train_step(model, tx, tcfg, loss_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        state, m = step(state, batches[i % len(batches)])
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]  # ends on the host
+    dt = time.perf_counter() - t0
+    launches = read_all()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    evaluate = make_eval_step(model)
+    ev = evaluate(state, to_device(next(batcher(held_out, TRAIN_BATCH,
+                                                [999])()), dev))
+    ev = {k: float(v) for k, v in ev.items()}
+    say("train", f"{TRAIN_STEPS} steps x {TRAIN_BATCH} x {N_POINTS} points "
+        f"bf16: losses {[round(x, 4) for x in losses]}, "
+        f"{TRAIN_STEPS / dt:.3f} steps/s, {TRAIN_STEPS * TRAIN_BATCH / dt:.2f}"
+        f" samples/s (host clock), peak memory {peak:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; eval EPE "
+        f"{ev['epe3d']:.4f} m, mIoU {ev['miou']:.4f}")
+    if profile_dir is not None:
+        profile_train(step, state, batches, profile_dir, dt / TRAIN_STEPS)
+    check(all(np.isfinite(losses)), "train", f"losses {losses}")
+    check(np.isfinite(ev["epe3d"]) and np.isfinite(ev["miou"]), "train",
+          f"eval {ev}")
+    for name in (*PER_STEP_FWD, *PER_STEP_BWD):
+        want = TRAIN_STEPS * {**PER_STEP_FWD, **PER_STEP_BWD}[name]
+        check(launches[name] == want, "train",
+              f"{name} launched {launches[name]} times, expected {want}")
+
+    # the loss on one fixed batch falls
+    model = load_tflow(cfg, device=dev)
+    state, tx = create_train_state(model, tcfg)
+    step = make_train_step(model, tx, tcfg, loss_cfg)
+    fixed = [float(step(state, batches[0])[1]["loss"])
+             for _ in range(DESCENT_STEPS + 1)]
+    say("train", f"fixed batch, lr {TRAIN_LR}: loss {fixed[0]:.4f} -> "
+        f"{fixed[-1]:.4f} after {DESCENT_STEPS} steps "
+        f"({[round(x, 4) for x in fixed]})")
+    check(fixed[-1] < fixed[0], "train",
+          f"the fixed-batch loss did not fall: {fixed}")
+
+    # first-step f32 gradients: the backward's scatter_add against its
+    # plain version on the same graph, then every kernel against its plain
+    # version on the same batch
+    model = load_tflow(FlowNetConfig(**net), device=dev)
+    loss, g_kernel, (loss_t, params) = _grads(model, batches[0], loss_cfg,
+                                              retain=True)
+    kernel_add = banded.scatter_add
+    banded.scatter_add = banded.scatter_add_plain
+    try:
+        g_plain_bwd = to_flax(model, dict(zip(params, torch.autograd.grad(
+            loss_t, list(params.values())))))
+    finally:
+        banded.scatter_add = kernel_add
+    err = _leaf_errors(g_kernel, g_plain_bwd)
+    worst = max(err, key=err.get)
+    say("train", f"f32 first-step gradients, backward kernel vs plain on "
+        f"one graph: worst leaf {worst} at {err[worst]:.2e} of its norm")
+    check(err[worst] <= 1e-3, "train",
+          f"gradient leaf {worst} differs by {err[worst]:.2e} of its norm")
+    names = ("knn_group", "knn_idw", "regroup", "scatter_softmax_sum",
+             "scatter_add")
+    kernels = {n: getattr(banded, n) for n in names}
+    for n in names:
+        setattr(banded, n, getattr(banded, f"{n}_plain"))
+    try:
+        loss_p, g_plain, _ = _grads(model, batches[0], loss_cfg)
+    finally:
+        for n, fn in kernels.items():
+            setattr(banded, n, fn)
+    err = _leaf_errors(g_kernel, g_plain)
+    order = sorted(err, key=err.get, reverse=True)
+    say("train", f"f32 first-step gradients, all kernels vs all plain "
+        f"versions: loss {loss.item():.6f} vs {loss_p.item():.6f}; "
+        f"{sum(e > 1e-3 for e in err.values())} of {len(err)} leaves beyond"
+        f" 1e-3 of their norm; worst " + ", ".join(
+            f"{k} {err[k]:.2e}" for k in order[:4]))
+    check(err[order[0]] <= 1e-3, "train", f"gradient leaf {order[0]} "
+          f"differs by {err[order[0]]:.2e} of its norm between the kernels"
+          f" and the plain versions")
+    phase_train_parity(dev, loss_cfg)
+    return launches
+
+
+def profile_train(step, state, batches, out_dir: str,
+                  host_s_per_step: float, n: int = 2) -> None:
+    """Device time by kernel over n train steps (torch.profiler), written
+    to out_dir/profile_train.txt; the busy share is the device time per
+    step over the unprofiled host time per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    dev_ms = sum(r[0] for r in rows)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
+        f.write("device ms/step  launches/step  kernel\n")
+        for t, c, key in rows:
+            f.write(f"{t:14.4f}  {c:13.1f}  {key}\n")
+    say("profile", f"train: device time {dev_ms:.2f} ms/step over {n} steps,"
+        f" {sum(r[1] for r in rows):.0f} launches/step, busy share "
+        f"{dev_ms / (host_s_per_step * 1e3):.3f} of "
+        f"{host_s_per_step * 1e3:.1f} ms/step")
+    for t, c, key in rows[:15]:
+        say("profile", f"{t:9.3f} ms/step {c:8.1f}/step  {key[:90]}")
+
+
+def phase_train_parity(dev, loss_cfg) -> None:
+    """The f32 train step on the fixture's batch against JAX's."""
+    import dataclasses
+
+    from ssf_slam_tpu_torch.config import FlowNetConfig
+    from ssf_slam_tpu_torch.train.trainer import to_device
+    from ssf_slam_tpu_torch.weights import load_tflow, to_flax
+
+    with np.load(TRAIN_FIXTURE) as z:
+        ref = {k: z[k] for k in z.files}
+    frames = bench_frames(2)
+    batch = to_device({k: np.stack([f[k] for f in frames]) for k in (
+        "pos1", "pos2", "gt", "mask1", "s_fg_mask")}, dev)
+    lw = ref["label_weights"]
+    loss_cfg = dataclasses.replace(
+        loss_cfg, seg_class_weights=(float(lw[0]), float(lw[1])))
+    model = load_tflow(FlowNetConfig(npoint=N_POINTS, joint_seg=True,
+                                     neighbor_backend="banded"), device=dev)
+    loss, grads, _ = _grads(model, batch, loss_cfg)
+    stats = {k: v for k, v in to_flax(model).items()
+             if k.startswith("batch_stats/")}
+    d_loss = abs(loss.item() - float(ref["loss"])) / abs(float(ref["loss"]))
+    want = {k: np.float64(ref[f"grad_norm/{k}"]) for k in grads}
+    norm_err = _leaf_errors({k: np.linalg.norm(g) for k, g in
+                             grads.items()}, want)
+    stat_err = {k: float(np.max(np.abs(v - ref[k])
+                                / (np.abs(ref[k]) + 1e-6)))
+                for k, v in stats.items()}
+    wn, ws = (max(e, key=e.get) for e in (norm_err, stat_err))
+    say("train", f"f32 step vs the JAX fixture: loss {loss.item():.6f} vs "
+        f"{float(ref['loss']):.6f} ({d_loss:.2e} relative); gradient norms: "
+        f"{sum(e > 1e-3 for e in norm_err.values())} of {len(norm_err)} "
+        f"beyond 1e-3, worst {wn} {norm_err[wn]:.2e}; batch statistics: "
+        f"{sum(e > 1e-4 for e in stat_err.values())} of {len(stat_err)} "
+        f"beyond 1e-4, worst {ws} {stat_err[ws]:.2e}")
+    check(d_loss <= 1e-4, "train", f"loss differs by {d_loss:.2e}")
+    check(norm_err[wn] <= 1e-3, "train",
+          f"gradient norm of {wn} differs by {norm_err[wn]:.2e}")
+    check(stat_err[ws] <= 1e-4, "train",
+          f"batch statistics {ws} differ by {stat_err[ws]:.2e}")
+
+
 def main() -> int:
     args = sys.argv[1:]
-    profile_dir = None
+    profile_dir = serve = None
     if args:
-        if len(args) != 2 or args[0] != "--profile":
-            print("usage: python3 chip_smoke.py [--profile DIR]",
+        if len(args) != 2 or args[0] not in ("--profile", "--serve"):
+            print("usage: python3 chip_smoke.py [--profile DIR | --serve NPZ]",
                   file=sys.stderr)
             return 2
-        profile_dir = args[1]
+        profile_dir, serve = (args[1], None) if args[0] == "--profile" \
+            else (None, args[1])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -613,40 +1084,48 @@ def main() -> int:
 
     set_geom_precision()
     dev = torch.device("cuda")
-    try:
+    if serve is not None:
+        # a checkpoint of the port's trainer through the serving path
         phase_build()
-        frames = bench_frames()
-        records = phase_kernels(frames, dev)
-        phase_f32(frames, dev)
-        launches, e2e = phase_main(frames, dev, fuse=False)
-        launches_fused, e2e_fused = phase_main(frames, dev, fuse=True)
-        if profile_dir is not None:
-            # the two settings in turns, each order as often as the other
-            # (off, on | on, off | off, on | on, off): the host clock's
-            # spread beside their difference
-            runs = {False: [e2e["scans_per_s"]],
-                    True: [e2e_fused["scans_per_s"]]}
-            for fuse in (True, False, False, True, True, False):
-                runs[fuse].append(phase_main(frames, dev, fuse)[1][
-                    "scans_per_s"])
-            med = {fuse: float(np.median(s)) for fuse, s in runs.items()}
-            say("turns", "scans/s, fuse_attention off: " + ", ".join(
-                f"{s:.2f}" for s in runs[False]) + f" (median "
-                f"{med[False]:.2f}); on: " + ", ".join(
-                f"{s:.2f}" for s in runs[True]) + f" (median "
-                f"{med[True]:.2f})")
-            for fuse in (False, True):
-                phase_profile(frames, dev, 1e3 / med[fuse], profile_dir,
-                              fuse=fuse)
-    except (PhaseError, RuntimeError, subprocess.SubprocessError) as exc:
-        print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
-        return 1
+        phase_main(bench_frames(), dev, fuse=False, weights=serve)
+        return 0
+    phase_build()
+    frames = bench_frames()
+    records = phase_kernels(frames, dev)
+    phase_f32(frames, dev)
+    launches, e2e = phase_main(frames, dev, fuse=False)
+    launches_fused, e2e_fused = phase_main(frames, dev, fuse=True)
+    if profile_dir is not None:
+        # the two settings in turns, each order as often as the other
+        # (off, on | on, off | off, on | on, off): the host clock's spread
+        # beside their difference
+        runs = {False: [e2e["scans_per_s"]], True: [e2e_fused["scans_per_s"]]}
+        for fuse in (True, False, False, True, True, False):
+            runs[fuse].append(phase_main(frames, dev, fuse)[1]["scans_per_s"])
+        med = {fuse: float(np.median(s)) for fuse, s in runs.items()}
+        say("turns", "scans/s, fuse_attention off: " + ", ".join(
+            f"{s:.2f}" for s in runs[False]) + f" (median {med[False]:.2f}); "
+            "on: " + ", ".join(f"{s:.2f}" for s in runs[True])
+            + f" (median {med[True]:.2f})")
+        for fuse in (False, True):
+            phase_profile(frames, dev, 1e3 / med[fuse], profile_dir,
+                          fuse=fuse)
+    launches_entry = phase_entry(frames, dev)
+    launches_train = phase_train(dev, profile_dir)
     kernels = []
     for name, r in records.items():
         src, replaces = KERNELS[name]
-        # each kernel's count from the main path that runs it
-        n_launch = (launches_fused if name in PER_SCAN_FUSED
-                    else launches)[name]
+        # each kernel's count from the path that runs it: the serving step
+        # (phase 4, or 5 for cost_attention), the entry points (phase 6) or
+        # the training loop (phase 7)
+        if name in PER_SCAN_FUSED:
+            n_launch = launches_fused[name]
+        elif name in PER_STEP_BWD:
+            n_launch = launches_train[name]
+        elif name in PER_ENTRY:
+            n_launch = launches_entry[name]
+        else:
+            n_launch = launches[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=n_launch, max_abs_err=r["max_abs_err"],

@@ -6,13 +6,16 @@ it and keeps its own copies of what it needs. The layout mirrors the JAX
 package so that each module's counterpart is easy to find:
 
 - ``ops``       geometry + neighbour engine (Morton codes, band plan, the
-                four banded CUDA kernels with their plain PyTorch versions,
-                kNN, FPS, grouping, SE(3), Kabsch)
-- ``models``    TFlow scene-flow network (tower / head split)
+                banded and attention CUDA kernels with their plain PyTorch
+                versions and gradients, kNN, FPS, grouping, SE(3), Kabsch)
+- ``models``    TFlow scene-flow network (tower / head split), its loss and
+                metrics
 - ``odometry``  ego-motion from scene flow (static-masked IRLS Kabsch)
-- ``engine``    the fused scene-flow odometry step and its sequence runner
-- ``data``      the synthetic CARLA-style sequence generator
-- ``weights``   Flax -> PyTorch parameter conversion, committed weights
+- ``frontend``, ``mapping``  plane features, keyframe map, pose graph
+- ``engine``    the fused SSF step and its sequence runner
+- ``train``     the train step, optimizer, loop, harness and entry point
+- ``data``      the synthetic CARLA-style generator, label weights
+- ``weights``   Flax <-> PyTorch parameter conversion, committed weights
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; they raise when CUDA is asked for and absent.

@@ -1,9 +1,9 @@
-"""Typed configuration: the port's copy of what the fused SSF step needs
-from ``ssf_slam_tpu/config.py`` (LidarConfig, FeatureConfig, OdometryConfig,
-EgoMotionConfig, MappingConfig, FlowNetConfig and PipelineConfig). Field
-names and defaults are the JAX package's; the loss and training configs
-arrive with the training slice. ``PipelineConfig.variant`` defaults to SSF,
-the one variant the port runs.
+"""Typed configuration: the port's copy of what the fused SSF step and
+training need from ``ssf_slam_tpu/config.py`` (LidarConfig, FeatureConfig,
+OdometryConfig, EgoMotionConfig, MappingConfig, FlowNetConfig, LossConfig,
+TrainConfig and PipelineConfig). Field names and defaults are the JAX
+package's. ``PipelineConfig.variant`` defaults to SSF, the one variant the
+port runs.
 """
 
 from __future__ import annotations
@@ -191,6 +191,31 @@ class FlowNetConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """multiScaleLoss. Reference: TFlowV3_Occlussion.py:199-220."""
+
+    alpha: Tuple[float, ...] = (0.02, 0.04, 0.08, 0.16)
+    seg_weight: float = 1.0  # BCE scale for the joint-seg head
+    # inverse-frequency (static, moving) class weights for the seg BCE
+    # (labelweights, my_carla.py:379-393); None = unweighted
+    seg_class_weights: Tuple[float, float] | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training harness. Reference: main_sju_occ_ros.py:411-452 + .sh files."""
+
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    decay_steps: int = 200000
+    decay_rate: float = 0.7
+    lr_min: float = 1e-5
+    epochs: int = 600
+    batch_size: int = 16
+    seed: int = 1234
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     variant: Variant = Variant.SSF
     lidar: LidarConfig = LidarConfig()
@@ -199,6 +224,8 @@ class PipelineConfig:
     egomotion: EgoMotionConfig = EgoMotionConfig()
     mapping: MappingConfig = MappingConfig()
     flownet: FlowNetConfig = FlowNetConfig()
+    loss: LossConfig = LossConfig()
+    train: TrainConfig = TrainConfig()
     max_scans: int = 2048
 
     def replace(self, **kw) -> "PipelineConfig":

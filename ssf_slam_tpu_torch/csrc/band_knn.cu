@@ -1,9 +1,12 @@
-// Banded kNN + grouping and banded kNN + inverse-distance interpolation.
+// Banded kNN: the top-k alone, with grouping, twin searches with grouping,
+// and with inverse-distance interpolation.
 //
 // Replaces the Pallas TPU kernels
-//   ssf_slam_tpu/ops/banded.py::banded_knn_group (_knn_group_kernel_body)
-//   ssf_slam_tpu/ops/banded.py::banded_knn_idw   (_knn_idw_kernel_body)
-// Both share one device routine, band_topk, for the band top-k.
+//   ssf_slam_tpu/ops/banded.py::banded_knn        (_knn_kernel_body)
+//   ssf_slam_tpu/ops/banded.py::banded_knn_group  (_knn_group_kernel_body)
+//   ssf_slam_tpu/ops/banded.py::banded_knn_group2 (_knn_group2_kernel_body)
+//   ssf_slam_tpu/ops/banded.py::banded_knn_idw    (_knn_idw_kernel_body)
+// All share one device routine, band_topk, for the band top-k.
 //
 // What it computes, per query n of tile t = n / 256 (Morton-sorted clouds):
 //   band     = target rows [base, base + wb), base = b0[t] * wblk,
@@ -20,7 +23,11 @@
 //   sqdist   = the truncated distance bits(key) & ~0x3FF
 //   idx      = base + (key & 0x3FF); slots whose distance is >= 5e9 repeat
 //              the nearest idx
+//   knn:       sqdist and idx only
 //   knn_group: grouped[n, j, :] = feats[idx[n, j], :]  (an exact copy)
+//   knn_group2: two searches (query_a in points_a, query_b in points_b)
+//              under ONE plan, b0 made from (query_a, points_a), each
+//              grouping the shared feats as knn_group does
 //   knn_idw:   w_j = 1 / sqrt(max(d_j, 0) + eps^2), normalised over j;
 //              out[n, :] = sum_j w_j * f32(feats[idx_j, :]) in slot order,
 //              accumulated in float32 and rounded once to the feats type
@@ -30,7 +37,8 @@
 // against 50 MFLOP of distances: it is bound by bytes, and the output write
 // is most of them. knn_idw writes only [N, C] and is bound by the
 // per-thread selection (N * wb key compares with a k-deep insertion), which
-// the device-memory and FLOP bounds do not count.
+// the device-memory and FLOP bounds do not count; so is knn, which writes
+// only [N, k] distances and indices. knn_group2 is two knn_group's work.
 //
 // Design (right and simple first; no TMA or wgmma):
 // - one block of 256 threads per query tile; the block stages the
@@ -74,8 +82,9 @@ __device__ __forceinline__ void band_topk(float qx, float qy, float qz,
 }
 
 // Stage the band, run the top-k for this thread's query, write sqdist and
-// idx, and park idx (and optionally the raw distances) in shared memory.
-// Returns nothing; the caller __syncthreads() before reading `sidx`.
+// idx, and optionally park idx and the distances in shared memory. The
+// band rows come from b0 of this block's tile whatever the points array;
+// the caller __syncthreads() before reading `sidx` or restaging `band`.
 __device__ __forceinline__ void tile_topk(
     const float* __restrict__ query, const float* __restrict__ points,
     const int* __restrict__ b0, int N, int M, int k, int wblk, int n_blocks,
@@ -101,8 +110,37 @@ __device__ __forceinline__ void tile_topk(
     const int pos = d >= 0.5f * BIG_DIST ? nearest : (keys[j] & POS_MASK);
     out_d[o + j] = d;
     out_i[o + j] = base + pos;
-    sidx[threadIdx.x * k + j] = base + pos;
+    if (sidx != nullptr) sidx[threadIdx.x * k + j] = base + pos;
     if (sd != nullptr) sd[threadIdx.x * k + j] = d;
+  }
+}
+
+__global__ void __launch_bounds__(QUERY_TILE)
+knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
+           const int* __restrict__ b0, int N, int M, int k, int wblk,
+           int n_blocks, int n_valid, float* __restrict__ out_d,
+           int* __restrict__ out_i) {
+  extern __shared__ float smem[];
+  tile_topk(query, points, b0, N, M, k, wblk, n_blocks, n_valid, out_d, out_i,
+            smem, nullptr, nullptr);
+}
+
+// copy the rows named by sidx[0 .. QUERY_TILE * k) of feats into this
+// tile's grouped block: one warp per output row, lanes over channels
+template <typename T>
+__device__ __forceinline__ void tile_group(const T* __restrict__ feats,
+                                           const int* sidx, int N, int M,
+                                           int C, int k,
+                                           T* __restrict__ grouped) {
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  const T* fb = feats + (size_t)b * M * C;
+  T* gb = grouped + ((size_t)b * N + (size_t)blockIdx.x * QUERY_TILE) * k * C;
+  for (int r = warp; r < QUERY_TILE * k; r += n_warps) {
+    const T* src = fb + (size_t)sidx[r] * C;
+    T* dst = gb + (size_t)r * C;
+    for (int c = lane; c < C; c += 32) dst[c] = src[c];
   }
 }
 
@@ -119,17 +157,32 @@ knn_group_kernel(const float* __restrict__ query,
   tile_topk(query, points, b0, N, M, k, wblk, n_blocks, n_valid, out_d, out_i,
             band, sidx, nullptr);
   __syncthreads();
+  tile_group(feats, sidx, N, M, C, k, grouped);
+}
 
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const T* fb = feats + (size_t)b * M * C;
-  T* gb = grouped + ((size_t)b * N + (size_t)blockIdx.x * QUERY_TILE) * k * C;
-  for (int r = warp; r < QUERY_TILE * k; r += n_warps) {
-    const T* src = fb + (size_t)sidx[r] * C;
-    T* dst = gb + (size_t)r * C;
-    for (int c = lane; c < C; c += 32) dst[c] = src[c];
-  }
+template <typename T>
+__global__ void __launch_bounds__(QUERY_TILE)
+knn_group2_kernel(const float* __restrict__ query_a,
+                  const float* __restrict__ query_b,
+                  const float* __restrict__ points_a,
+                  const float* __restrict__ points_b,
+                  const T* __restrict__ feats, const int* __restrict__ b0,
+                  int N, int M, int C, int k, int wblk, int n_blocks,
+                  int n_valid, float* __restrict__ d_a, int* __restrict__ i_a,
+                  T* __restrict__ g_a, float* __restrict__ d_b,
+                  int* __restrict__ i_b, T* __restrict__ g_b) {
+  extern __shared__ float smem[];
+  float* band = smem;                                   // [wb * 3]
+  int* sidx_a = (int*)(band + 3 * wblk * n_blocks);     // [256 * k]
+  int* sidx_b = sidx_a + QUERY_TILE * k;                // [256 * k]
+  tile_topk(query_a, points_a, b0, N, M, k, wblk, n_blocks, n_valid, d_a, i_a,
+            band, sidx_a, nullptr);
+  __syncthreads();  // every thread is done with points_a's band
+  tile_topk(query_b, points_b, b0, N, M, k, wblk, n_blocks, n_valid, d_b, i_b,
+            band, sidx_b, nullptr);
+  __syncthreads();
+  tile_group(feats, sidx_a, N, M, C, k, g_a);
+  tile_group(feats, sidx_b, N, M, C, k, g_b);
 }
 
 template <typename T>
@@ -201,6 +254,39 @@ static int launch_group(const void* query, const void* points,
   return (int)cudaGetLastError();
 }
 
+static int launch_knn(const void* query, const void* points, const void* b0,
+                      int B, int N, int M, int k, int wblk, int n_blocks,
+                      int n_valid, void* out_d, void* out_i,
+                      cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 3 * wblk * n_blocks;
+  dim3 grid(N / QUERY_TILE, B);
+  knn_kernel<<<grid, QUERY_TILE, smem, stream>>>(
+      (const float*)query, (const float*)points, (const int*)b0, N, M, k,
+      wblk, n_blocks, n_valid, (float*)out_d, (int*)out_i);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_group2(const void* qa, const void* qb, const void* pa,
+                         const void* pb, const void* feats, const void* b0,
+                         int B, int N, int M, int C, int k, int wblk,
+                         int n_blocks, int n_valid, void* d_a, void* i_a,
+                         void* g_a, void* d_b, void* i_b, void* g_b,
+                         cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * 3 * wblk * n_blocks + sizeof(int) * 2 * QUERY_TILE * k;
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_group2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(N / QUERY_TILE, B);
+  knn_group2_kernel<T><<<grid, QUERY_TILE, smem, stream>>>(
+      (const float*)qa, (const float*)qb, (const float*)pa, (const float*)pb,
+      (const T*)feats, (const int*)b0, N, M, C, k, wblk, n_blocks, n_valid,
+      (float*)d_a, (int*)i_a, (T*)g_a, (float*)d_b, (int*)i_b, (T*)g_b);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_idw(const void* query, const void* points, const void* feats,
                       const void* b0, int B, int N, int M, int C, int k,
@@ -239,6 +325,39 @@ int ssf_knn_group(const void* query, const void* points, const void* feats,
   return launch_group<float>(query, points, feats, b0, B, N, M, C, k, wblk,
                              n_blocks, n_valid, out_d, out_i, grouped,
                              (cudaStream_t)stream);
+}
+
+// query [B, N, 3] f32, points [B, M, 3] f32, b0 [B, N / 256] i32
+// -> out_d [B, N, k] f32, out_i [B, N, k] i32. Returns a cudaError_t code.
+int ssf_knn(const void* query, const void* points, const void* b0, int B,
+            int N, int M, int k, int wblk, int n_blocks, int n_valid,
+            void* out_d, void* out_i, void* stream) {
+  int bad = check_shape(N, k, wblk, n_blocks);
+  if (bad) return bad;
+  return launch_knn(query, points, b0, B, N, M, k, wblk, n_blocks, n_valid,
+                    out_d, out_i, (cudaStream_t)stream);
+}
+
+// query_a, query_b [B, N, 3] f32, points_a, points_b [B, M, 3] f32 (rows
+// aligned), feats [B, M, C], b0 [B, N / 256] i32 (the plan of query_a in
+// points_a) -> (d, i, grouped) of each search, as ssf_knn_group's
+int ssf_knn_group2(const void* query_a, const void* query_b,
+                   const void* points_a, const void* points_b,
+                   const void* feats, const void* b0, int B, int N, int M,
+                   int C, int k, int wblk, int n_blocks, int n_valid,
+                   int feats_bf16, void* d_a, void* i_a, void* g_a, void* d_b,
+                   void* i_b, void* g_b, void* stream) {
+  int bad = check_shape(N, k, wblk, n_blocks);
+  if (bad) return bad;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (feats_bf16)
+    return launch_group2<__nv_bfloat16>(query_a, query_b, points_a, points_b,
+                                        feats, b0, B, N, M, C, k, wblk,
+                                        n_blocks, n_valid, d_a, i_a, g_a, d_b,
+                                        i_b, g_b, s);
+  return launch_group2<float>(query_a, query_b, points_a, points_b, feats, b0,
+                              B, N, M, C, k, wblk, n_blocks, n_valid, d_a, i_a,
+                              g_a, d_b, i_b, g_b, s);
 }
 
 // as ssf_knn_group, but out [B, N, C] = the IDW mix of the k neighbours'

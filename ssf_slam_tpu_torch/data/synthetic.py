@@ -1,8 +1,8 @@
 """Synthetic CARLA-style scene-flow sequence generation — the port's numpy
 copy of ssf_slam_tpu/data/synthetic.py (same seed, byte-identical frames;
 tests/test_torch_ops.py and tests/test_torch_slam.py hold the two to that,
-for the street and the out-and-back trajectories). Hybrid foreground
-oversampling (a training option) is left to the training slice.
+for the street and the out-and-back trajectories, tests/test_torch_train.py
+for the hybrid foreground oversampling of training frames).
 
 The reference generates its training/eval data offline with a CARLA client
 (scripts/ActiveSceneFlow/Scenario_Traj.py, Process.py, Generate_Sceneflow.py):
@@ -30,6 +30,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+from ssf_slam_tpu_torch.data.carla import hybrid_sample
 
 
 @dataclasses.dataclass
@@ -232,13 +234,22 @@ def subsample_scan(
     oid: np.ndarray,
     n: int,
     rng: np.random.Generator,
+    fg_oversample: int = 0,
+    moving_ids: Optional[np.ndarray] = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Random-subsample valid hits to exactly n padded rows, kept in their
     original (row-major, azimuth-sorted) order
-    (utils/datasets/carla.py:274-285)."""
+    (utils/datasets/carla.py:274-285). ``fg_oversample`` > 0 draws up to
+    that many points from the moving objects ``moving_ids`` and the rest
+    from the background (``data/carla.py::hybrid_sample``): the training
+    balance lever; 0 for evaluation data."""
     hits = np.flatnonzero(mask)
     if len(hits) > n:
-        sel = np.sort(rng.choice(hits, n, replace=False))
+        if fg_oversample > 0 and moving_ids is not None:
+            fg = np.isin(oid[hits], moving_ids)
+            sel = hits[hybrid_sample(fg, n, fg_oversample, rng)]
+        else:
+            sel = np.sort(rng.choice(hits, n, replace=False))
     else:
         sel = hits
     out_p = np.zeros((n, 3), pts.dtype)
@@ -324,6 +335,7 @@ def generate_sequence(
     trajectory=None,
     mover_speed: tuple = (3.0, 10.0),
     crossing_frac: float = 0.0,
+    fg_oversample: int = 0,
 ) -> list[dict]:
     """Generate a CARLA-npz-schema sequence of frame PAIRS.
 
@@ -345,6 +357,8 @@ def generate_sequence(
     # cast dense (like a real sensor), then random-subsample to n_points —
     # exactly the density regime of the reference's CARLA npz frames
     pts_per_row = max(1024, int(np.ceil(n_points / n_rows)))
+    moving_ids = np.asarray(
+        [i for i, b in enumerate(world.boxes) if np.any(b.velocity)])
     frames = []
     scans = []
     for k in range(n_frames + 1):
@@ -353,7 +367,9 @@ def generate_sequence(
         p, m, oid = simulate_scan(
             world, pos, yaw, t, n_rows, pts_per_row, noise=noise, rng=rng
         )
-        p, m, oid = subsample_scan(p, m, oid, n_points, rng)
+        p, m, oid = subsample_scan(p, m, oid, n_points, rng,
+                                   fg_oversample=fg_oversample,
+                                   moving_ids=moving_ids)
         scans.append((p, m, oid, pos, yaw, t))
 
     for k in range(n_frames):

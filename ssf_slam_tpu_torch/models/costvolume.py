@@ -9,12 +9,13 @@ tree (``flow0_r/Dense_0``, ``flow0_r/BatchNorm_0``, ...), as in Flax.
 With ``fuse_attention`` the attention -> weightnet -> forward aggregation
 chain runs as one kernel (``ops/attention.py::cost_attention_fused``) under
 the JAX package's condition: banded backend, eval mode, a band plan for the
-forward search, and N1 a multiple of 256. The kernel takes the weightnet
-with its BatchNorms folded in, in float32 (the Flax policy: weights float32,
-cast to the feature type inside). They are folded in one place,
-``fold_weights``, which ``weights.load_tflow`` calls before it casts the
-Dense layers to the compute type; loading a state dict drops them, and the
-fused branch raises until they are folded again.
+forward search, and N1 a multiple of 256. The branch is inference-only:
+training takes the unfused chain, as in JAX. The kernel takes the
+weightnet with its BatchNorms folded in, in float32 (the Flax policy:
+weights float32, cast to the feature type inside). They are folded in one
+place, ``fold_weights``, which ``weights.load_tflow`` calls; loading a
+state dict drops them, and the fused branch raises until they are folded
+again.
 """
 
 from __future__ import annotations
@@ -92,9 +93,6 @@ class AttentiveCostVolume(nn.Module):
         (``fold_weightnet``) and keep the result on the module as
         non-persistent buffers, which follow it across devices."""
         layers = (self.Dense_0, self.Dense_1, self.Dense_2)
-        if any(d.weight.dtype != torch.float32 for d in layers):
-            raise TypeError("fold the weightnet before casting its Dense "
-                            "layers to the compute type")
         params = {f"Dense_{i}": dict(kernel=d.weight.T, bias=d.bias)
                   for i, d in enumerate(layers)}
         stats = {}
@@ -155,8 +153,7 @@ class AttentiveCostVolume(nn.Module):
             if wn is None:
                 raise RuntimeError(
                     "fuse_attention needs the folded weightnet: load the "
-                    "weights with weights.load_tflow, or call fold_weights() "
-                    "while the Dense layers are float32")
+                    "weights with weights.load_tflow, or call fold_weights()")
             cost_fwd, w_k_logits = cost_attention_fused(q_feat, k_feat,
                                                         q_cost, wn)
         else:

@@ -5,6 +5,13 @@ Module and parameter names follow the Flax tree (``Dense_0_part1``,
 ``BatchNorm_2``, ``PointMLP_0``) so that ``weights.from_flax`` is a
 mechanical rename: a Flax leaf ``a/b/Dense_0/kernel`` is the torch tensor
 ``a.b.Dense_0.weight`` transposed.
+
+The layers follow Flax's policy: parameters are float32 masters and the
+Dense products run in the compute type (``Dense.dtype``); BatchNorm
+computes in float32. In train mode (``module.train()``) BatchNorm
+normalises with the batch's statistics and updates its running ones, as
+``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-3)`` does; ``init_flax``
+draws Flax's initial values.
 """
 
 from __future__ import annotations
@@ -25,25 +32,51 @@ LEAKY_RATE = 0.1
 
 
 class Dense(nn.Module):
-    """flax.linen.Dense: y = x W + b in the module's compute type. The
-    weight is stored [out, in] (PyTorch's layout); ``weights.from_flax``
-    transposes the Flax kernel [in, out]."""
+    """flax.linen.Dense(dtype, param_dtype=float32): y = x W + b with the
+    input, the weight and the bias rounded to the compute type ``dtype``
+    (float32 masters, as Flax's ``promote_dtype`` casts them). The weight
+    is stored [out, in] (PyTorch's layout); ``weights.from_flax`` transposes
+    the Flax kernel [in, out]. Without autograd the compute-type copies are
+    kept until the masters change, so serving pays no cast per call."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True):
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(out_features, in_features))
         self.bias = (nn.Parameter(torch.zeros(out_features)) if bias
                      else None)
+        self._cast_cache: dict = {}
+
+    def _cast(self, name: str, t: Tensor | None) -> Tensor | None:
+        if t is None or t.dtype == self.dtype:
+            return t
+        if torch.is_grad_enabled():
+            return t.to(self.dtype)
+        key = (t.device, t.data_ptr(), t._version)
+        hit = self._cast_cache.get(name)
+        if hit is None or hit[0] != key:
+            hit = (key, t.detach().to(self.dtype))
+            self._cast_cache[name] = hit
+        return hit[1]
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        return F.linear(x.to(self.dtype), self._cast("weight", self.weight),
+                        self._cast("bias", self.bias))
 
 
 class BatchNorm(nn.Module):
-    """flax.linen.BatchNorm at inference, epsilon 1e-3: computed in float32
-    in Flax's op order ((x - mean) * (rsqrt(var + eps) * scale) + bias),
-    returned in the input's type."""
+    """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-3), computed in
+    float32 in Flax's op order ((x - mean) * (rsqrt(var + eps) * scale) +
+    bias) and returned in the input's type.
+
+    Eval mode normalises with the running statistics. Train mode takes the
+    batch's over every axis but the last (padded points included): the
+    mean and the biased variance E[x^2] - E[x]^2 clamped at 0, and updates
+    the running statistics to 0.9 old + 0.1 batch. (PyTorch's batch_norm
+    would update running_var with the unbiased variance.)"""
+
+    momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1e-3):
         super().__init__()
@@ -54,9 +87,44 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: Tensor) -> Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+        x32 = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = torch.mean(x32, dim=axes)
+            var = torch.clamp(torch.mean(x32 * x32, dim=axes) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean) * mul + self.bias
         return y.to(x.dtype)
+
+
+def init_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's initial values in place: Dense kernels ``lecun_normal``
+    (a normal of std sqrt(1 / fan_in) truncated at two std, rescaled to
+    keep that std), Dense biases 0, BatchNorm scale 1 and bias 0, running
+    mean 0 and variance 1. Modules are visited in registration order."""
+    std_of_unit_trunc = 0.87962566103423978  # std of N(0, 1) cut at +-2
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Dense):
+                std = (1.0 / m.weight.shape[1]) ** 0.5 / std_of_unit_trunc
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    return model
 
 
 class PointMLP(nn.Module):

@@ -6,7 +6,10 @@ box; the fused engine caches the previous scan's tower under a
 sequence-stable box instead.
 
 Returns per-level flows (fine first; the finest in the caller's point
-order) and the FPS index chain, as the JAX module does.
+order) and the FPS index chain, as the JAX module does. The Dense layers
+compute in ``cfg.dtype`` over float32 masters; ``module.train()`` is the
+JAX package's ``train=True`` (BatchNorm on batch statistics, the fused
+cost attention off). ``multi_scale_loss`` is the training loss.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch import nn
 from ssf_slam_tpu_torch.config import FlowNetConfig
 from ssf_slam_tpu_torch.models.costvolume import AttentiveCostVolume
 from ssf_slam_tpu_torch.models.layers import (
+    Dense,
     PointMLP,
     SetAbstraction,
     SetUpConv,
@@ -24,6 +28,7 @@ from ssf_slam_tpu_torch.models.layers import (
     upsample_flow,
     upsample_multi,
 )
+from ssf_slam_tpu_torch.ops.grouping import gather_points
 from ssf_slam_tpu_torch.ops.neighbors import (
     cloud_box,
     invert_permutation,
@@ -74,6 +79,11 @@ class TFlow(nn.Module):
         self.deconv3_2 = PointMLP(256, (64,))
         self.deconv2_1 = PointMLP(128, (32,))
         self.deconv1_0 = PointMLP(64, (32,))
+
+        dtype = getattr(torch, cfg.dtype)
+        for m in self.modules():
+            if isinstance(m, Dense):
+                m.dtype = dtype
 
     def tower(self, pc: Tensor, box=None) -> dict:
         """Per-cloud half. On the banded backend ``box`` must be the Morton
@@ -148,3 +158,45 @@ class TFlow(nn.Module):
         if box is None and self.cfg.neighbor_backend == "banded":
             box = cloud_box(pc1, pc2)
         return self.head(self.tower(pc1, box), self.tower(pc2, box), box)
+
+
+def multi_scale_loss(pred_flows: list, gt_flow: Tensor, mask: Tensor,
+                     fps_inds: list, alpha=(0.02, 0.04, 0.08, 0.16),
+                     seg_labels: Tensor | None = None, seg_weight: float = 1.0,
+                     seg_class_weights=None) -> Tensor:
+    """Masked multi-scale L2 flow loss (tflow.py::multi_scale_loss).
+
+    GT flow, mask and seg labels are subsampled through the FPS index
+    chain. Each level adds alpha_l * mean over the batch of the summed
+    per-point norms (eps 1e-12 inside the sqrt keeps masked rows'
+    gradient finite); predictions with a 4th channel add alpha_l *
+    seg_weight * the masked sigmoid BCE, weighted per class by
+    ``seg_class_weights`` = (w_static, w_moving) when given.
+    """
+    gt_flows, gt_masks, gt_segs = [gt_flow], [mask], [seg_labels]
+    for idx in fps_inds:
+        gt_flows.append(gather_points(gt_flows[-1], idx))
+        gt_masks.append(torch.gather(gt_masks[-1], -1, idx.long()))
+        if seg_labels is not None:
+            gt_segs.append(torch.gather(gt_segs[-1], -1, idx.long()))
+    total = 0.0
+    for i, pred in enumerate(pred_flows):
+        diff = (pred[..., :3] - gt_flows[i]) * gt_masks[i][..., None]
+        norm = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
+        total = total + alpha[i] * torch.mean(torch.sum(norm, dim=-1))
+        if seg_labels is not None and pred.shape[-1] == 4:
+            bce = optax_sigmoid_bce(pred[..., 3], gt_segs[i]) * gt_masks[i]
+            if seg_class_weights is not None:
+                w0, w1 = seg_class_weights
+                y = gt_segs[i]
+                bce = bce * (w0 * (1.0 - y) + w1 * y)
+            total = total + alpha[i] * seg_weight * torch.mean(
+                torch.sum(bce, dim=-1))
+    return total
+
+
+def optax_sigmoid_bce(logits: Tensor, labels: Tensor) -> Tensor:
+    """Numerically stable sigmoid BCE (optax.sigmoid_binary_cross_entropy),
+    in the JAX expression's order and types."""
+    return (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))

@@ -2,7 +2,12 @@
 (ssf_slam_tpu/ops/attention.py).
 
 ``attention_xla`` and ``cost_attention_xla`` are the JAX package's XLA
-references in plain PyTorch. ``cost_attention_fused`` is the port of the
+references in plain PyTorch. ``attention_fused`` is the port of the Pallas
+kernel ``_attention_pallas_2d``: the dual-softmax attention alone, with the
+product kept in float32 and one rounding of each attended output
+(``csrc/attention.cu`` for CUDA tensors, ``attention_plain`` for CPU
+tensors); its gradient re-linearises ``attention_xla``, as the JAX custom
+VJP does. ``cost_attention_fused`` is the port of the
 Pallas kernel ``_cost_attention_2d``: per query point, the dual-softmax
 attention of its K-neighbour patch, the BN-folded 3-layer weightnet on the
 attended q' and k', and the softmax-over-K aggregation of ``q_cost``. It
@@ -14,7 +19,7 @@ Both compute what the Pallas body computes, which differs from
 ``cost_attention_xla`` in where it rounds to the feature type: the
 dual-softmax product and the attended features are rounded to it.
 
-``LAUNCHES`` counts kernel launches; the plain version does not count.
+``LAUNCHES`` counts kernel launches; the plain versions do not count.
 """
 
 from __future__ import annotations
@@ -23,12 +28,13 @@ import torch
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"cost_attention": 0}
+LAUNCHES = {"attention": 0, "cost_attention": 0}
 BN_EPS = 1e-3  # the weightnet BatchNorms' epsilon (Flax), not PyTorch's
 
 
 def reset_launches() -> None:
-    LAUNCHES["cost_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def attention_xla(q_feat: Tensor, k_feat: Tensor) -> tuple[Tensor, Tensor]:
@@ -40,6 +46,79 @@ def attention_xla(q_feat: Tensor, k_feat: Tensor) -> tuple[Tensor, Tensor]:
     q_att = q_feat + torch.matmul(w, k32).to(q_feat.dtype)
     k_att = k_feat + torch.matmul(w.transpose(-1, -2), q32).to(k_feat.dtype)
     return q_att, k_att
+
+
+def attention_plain(q_feat: Tensor, k_feat: Tensor) -> tuple[Tensor, Tensor]:
+    """The Pallas body of ``_attention_pallas_2d`` in plain PyTorch
+    ([.., N, K, C]): inputs to float32; W = QK^T, dual softmax over the
+    q-row axis (-2) and the k-column axis (-1), the product kept in float32;
+    q' = q + W k and k' = k + W^T q summed in float32 and rounded once to
+    each input's type (``attention_xla`` rounds the products first)."""
+    q32, k32 = q_feat.float(), k_feat.float()
+    w = torch.matmul(q32, k32.transpose(-1, -2))
+    e1 = torch.exp(w - torch.amax(w, dim=-2, keepdim=True))
+    s1 = e1 / torch.sum(e1, dim=-2, keepdim=True)
+    e2 = torch.exp(w - torch.amax(w, dim=-1, keepdim=True))
+    s2 = e2 / torch.sum(e2, dim=-1, keepdim=True)
+    w = s1 * s2
+    qa = (q32 + torch.matmul(w, k32)).to(q_feat.dtype)
+    ka = (k32 + torch.matmul(w.transpose(-1, -2), q32)).to(k_feat.dtype)
+    return qa, ka
+
+
+def _attention_kernel(q_feat: Tensor, k_feat: Tensor) -> tuple[Tensor, Tensor]:
+    """CUDA tensors launch ``csrc/attention.cu``; CPU tensors take
+    ``attention_plain``."""
+    devs = {q_feat.device, k_feat.device}
+    if devs == {torch.device("cpu")}:
+        return attention_plain(q_feat, k_feat)
+    if len(devs) != 1 or q_feat.device.type != "cuda":
+        raise ValueError(f"tensors on several or unsupported devices: {devs}")
+    dt = q_feat.dtype
+    if dt not in (torch.float32, torch.bfloat16) or k_feat.dtype != dt:
+        raise TypeError(f"feature types {dt}, {k_feat.dtype} (one of "
+                        f"float32, bfloat16)")
+    *_, k, c = q_feat.shape
+    if k_feat.shape != q_feat.shape or not 1 <= k <= MAX_K \
+            or not 1 <= c <= 512:
+        raise ValueError("attention: inconsistent shapes")
+    from ssf_slam_tpu_torch.ops import cuda_build
+
+    q_feat, k_feat = q_feat.contiguous(), k_feat.contiguous()
+    qa, ka = torch.empty_like(q_feat), torch.empty_like(k_feat)
+    cuda_build.call(
+        "ssf_attention", "ssf_attention", q_feat.data_ptr(), k_feat.data_ptr(),
+        q_feat.numel() // (k * c), k, c, int(dt == torch.bfloat16),
+        qa.data_ptr(), ka.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    LAUNCHES["attention"] += 1
+    return qa, ka
+
+
+class _AttentionFused(torch.autograd.Function):
+    """The kernel forward; the backward re-linearises ``attention_xla`` at
+    the saved inputs (attention.py::_attention_fused_bwd)."""
+
+    @staticmethod
+    def forward(ctx, q_feat, k_feat):
+        ctx.save_for_backward(q_feat, k_feat)
+        return _attention_kernel(q_feat, k_feat)
+
+    @staticmethod
+    def backward(ctx, g_q, g_k):
+        q_feat, k_feat = ctx.saved_tensors
+        with torch.enable_grad():
+            q = q_feat.detach().requires_grad_()
+            k = k_feat.detach().requires_grad_()
+            outs = attention_xla(q, k)
+            cts = [torch.zeros_like(o) if g is None else g
+                   for o, g in zip(outs, (g_q, g_k))]
+            return torch.autograd.grad(outs, (q, k), cts)
+
+
+def attention_fused(q_feat: Tensor, k_feat: Tensor) -> tuple[Tensor, Tensor]:
+    """The fused dual-softmax attention ([.., N, K, C] pair -> attended
+    pair), differentiable in both inputs."""
+    return _AttentionFused.apply(q_feat, k_feat)
 
 
 def fold_weightnet(params: dict, batch_stats: dict,

@@ -1,4 +1,4 @@
-"""Morton-banded neighbour engine: the band plan and the four main-path
+"""Morton-banded neighbour engine: the band plan and the seven banded
 kernels (ssf_slam_tpu/ops/banded.py).
 
 Both clouds are Morton-sorted, so a query's true neighbours live in a
@@ -9,8 +9,10 @@ exist at all, so it is ported bit-exactly, and the 256-query tile is part
 of the semantics.
 
 Each kernel has two versions behind one wrapper:
-- a CUDA kernel (``csrc/band_knn.cu``, ``csrc/band_scatter.cu``), launched
-  for CUDA tensors on PyTorch's current stream;
+- a CUDA kernel (``csrc/band_knn.cu``: knn, knn_group, knn_group2,
+  knn_idw; ``csrc/band_scatter.cu``: regroup, scatter_add,
+  scatter_softmax_sum), launched for CUDA tensors on PyTorch's current
+  stream;
 - a plain PyTorch version computing the same function (the same packed-key
   top-k, the same distance truncation, the same bf16 rounding), taken only
   for CPU tensors. A CUDA tensor launches the kernel or raises: there is no
@@ -39,8 +41,8 @@ _POS_BITS = 10
 _POS_MASK = (1 << _POS_BITS) - 1
 IDW_EPS = 1e-2  # ops/interp.py::idw_weights' eps, inside the sqrt
 
-LAUNCHES = {"knn_group": 0, "knn_idw": 0, "regroup": 0,
-            "scatter_softmax_sum": 0}
+LAUNCHES = {"knn": 0, "knn_group": 0, "knn_group2": 0, "knn_idw": 0,
+            "regroup": 0, "scatter_add": 0, "scatter_softmax_sum": 0}
 
 
 def reset_launches() -> None:
@@ -152,9 +154,20 @@ def _in_band(idx: Tensor, b0: Tensor, params) -> Tensor:
     return (idx >= base) & (idx < base + wblk * nb)
 
 
+def knn_plain(query, points, k, plan, params):
+    return _band_topk_plain(query, points, plan, k, params)
+
+
 def knn_group_plain(query, points, feats, k, plan, params):
     d, idx = _band_topk_plain(query, points, plan, k, params)
     return d, idx, _rows_of(feats, idx)
+
+
+def knn_group2_plain(query_a, query_b, points_a, points_b, feats, k, plan,
+                     params):
+    da, ia, ga = knn_group_plain(query_a, points_a, feats, k, plan, params)
+    db, ib, gb = knn_group_plain(query_b, points_b, feats, k, plan, params)
+    return da, ia, ga, db, ib, gb
 
 
 def knn_idw_plain(query, points, feats, k, plan, params):
@@ -175,6 +188,17 @@ def regroup_plain(idx, feats, plan, params):
     out = _rows_of(feats, idx)
     return torch.where(_in_band(idx, plan[0], params)[..., None], out,
                        torch.zeros((), dtype=feats.dtype, device=feats.device))
+
+
+def scatter_add_plain(idx, vals, plan, params, n_out):
+    bsz, n, k, c = vals.shape
+    keep = _in_band(idx, plan[0], params) & (idx < n_out)
+    v = torch.where(keep[..., None], vals.float(), 0.0)
+    rows = torch.where(keep, idx.long(), 0)
+    out = torch.zeros(bsz, n_out, c, dtype=torch.float32, device=vals.device)
+    for b in range(bsz):
+        out[b].index_add_(0, rows[b].reshape(-1), v[b].reshape(-1, c))
+    return out
 
 
 def scatter_softmax_sum_plain(idx, vals, w_shift, plan, params, n_out):
@@ -237,6 +261,26 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def knn(query, points, k, plan, params):
+    """Banded kNN (banded.py::banded_knn): (sqdist [B, N, k] f32,
+    idx [B, N, k] i32), the top-k of ``knn_group`` without the grouping."""
+    if not _on_cuda(query, points, plan[0]):
+        return knn_plain(query, points, k, plan, params)
+    _check_geometry(query, points, points, plan, k, params)
+    from ssf_slam_tpu_torch.ops import cuda_build
+
+    bsz, n, _ = query.shape
+    m = points.shape[1]
+    d = torch.empty(bsz, n, k, dtype=torch.float32, device=query.device)
+    idx = torch.empty(bsz, n, k, dtype=torch.int32, device=query.device)
+    cuda_build.call(
+        "ssf_band_knn", "ssf_knn", query.data_ptr(), points.data_ptr(),
+        plan[0].data_ptr(), bsz, n, m, k, params[1], params[2], int(plan[1]),
+        d.data_ptr(), idx.data_ptr(), _stream())
+    LAUNCHES["knn"] += 1
+    return d, idx
+
+
 def knn_group(query, points, feats, k, plan, params):
     """Fused banded kNN + grouping (banded.py::banded_knn_group).
 
@@ -260,6 +304,38 @@ def knn_group(query, points, feats, k, plan, params):
         d.data_ptr(), idx.data_ptr(), grouped.data_ptr(), _stream())
     LAUNCHES["knn_group"] += 1
     return d, idx, grouped
+
+
+def knn_group2(query_a, query_b, points_a, points_b, feats, k, plan, params):
+    """Twin banded kNN + grouping under ONE plan, made from (query_a,
+    points_a), with feats shared (banded.py::banded_knn_group2). Returns
+    (d_a, i_a, grouped_a, d_b, i_b, grouped_b), each as ``knn_group``'s."""
+    if not _on_cuda(query_a, query_b, points_a, points_b, feats, plan[0]):
+        return knn_group2_plain(query_a, query_b, points_a, points_b, feats,
+                                k, plan, params)
+    _check_geometry(query_a, points_a, feats, plan, k, params)
+    _check_geometry(query_b, points_b, feats, plan, k, params)
+    if query_b.shape != query_a.shape or points_b.shape != points_a.shape:
+        raise ValueError("banded kNN group2: the twin searches differ in "
+                         "shape")
+    from ssf_slam_tpu_torch.ops import cuda_build
+
+    bsz, n, _ = query_a.shape
+    m, c = feats.shape[1], feats.shape[2]
+    dev = query_a.device
+    outs = []
+    for _ in range(2):
+        outs += [torch.empty(bsz, n, k, dtype=torch.float32, device=dev),
+                 torch.empty(bsz, n, k, dtype=torch.int32, device=dev),
+                 torch.empty(bsz, n, k, c, dtype=feats.dtype, device=dev)]
+    cuda_build.call(
+        "ssf_band_knn", "ssf_knn_group2", query_a.data_ptr(),
+        query_b.data_ptr(), points_a.data_ptr(), points_b.data_ptr(),
+        feats.data_ptr(), plan[0].data_ptr(), bsz, n, m, c, k, params[1],
+        params[2], int(plan[1]), int(feats.dtype == torch.bfloat16),
+        *(t.data_ptr() for t in outs), _stream())
+    LAUNCHES["knn_group2"] += 1
+    return tuple(outs)
 
 
 def knn_idw(query, points, feats, k, plan, params):
@@ -311,6 +387,33 @@ def regroup(idx, feats, plan, params):
         plan[0].data_ptr(), bsz, n, m, c, k, params[1], params[2],
         int(feats.dtype == torch.bfloat16), out.data_ptr(), _stream())
     LAUNCHES["regroup"] += 1
+    return out
+
+
+def scatter_add(idx, vals, plan, params, n_out):
+    """Banded segment sum (banded.py::banded_scatter_add):
+    out[b, m] = sum of vals[b, i, j] over idx[b, i, j] == m, in float32
+    [B, n_out, C]; contributions whose idx lies outside its tile's band add
+    nothing."""
+    if not _on_cuda(idx, vals, plan[0]):
+        return scatter_add_plain(idx, vals, plan, params, n_out)
+    _check(idx, "idx", (torch.int32,), 3)
+    _check(vals, "vals", _FEAT_TYPES, 4)
+    _check(plan[0], "b0", (torch.int32,), 2)
+    bsz, n, k = idx.shape
+    c = vals.shape[-1]
+    if (vals.shape[:3] != idx.shape or n % QUERY_TILE
+            or params[0] != QUERY_TILE
+            or plan[0].shape != (bsz, n // QUERY_TILE)):
+        raise ValueError("banded scatter-add: inconsistent shapes or params")
+    from ssf_slam_tpu_torch.ops import cuda_build
+
+    out = torch.zeros(bsz, n_out, c, dtype=torch.float32, device=vals.device)
+    cuda_build.call(
+        "ssf_band_scatter", "ssf_scatter_add", idx.data_ptr(), vals.data_ptr(),
+        plan[0].data_ptr(), bsz, n, c, k, n_out, params[1], params[2],
+        int(vals.dtype == torch.bfloat16), out.data_ptr(), _stream())
+    LAUNCHES["scatter_add"] += 1
     return out
 
 

@@ -27,6 +27,7 @@ SOURCES = {
     "ssf_band_knn": "band_knn.cu",
     "ssf_band_scatter": "band_scatter.cu",
     "ssf_cost_attention": "cost_attention.cu",
+    "ssf_attention": "attention.cu",
 }
 
 _P = ctypes.c_void_p
@@ -35,16 +36,22 @@ _F = ctypes.c_float
 # C signatures (all return a cudaError_t code)
 SIGNATURES = {
     "ssf_band_knn": {
+        "ssf_knn": [_P, _P, _P] + [_I] * 7 + [_P, _P, _P],
+        "ssf_knn_group2": [_P] * 6 + [_I] * 9 + [_P] * 7,
         "ssf_knn_group": [_P, _P, _P, _P] + [_I] * 9 + [_P, _P, _P, _P],
         "ssf_knn_idw": [_P, _P, _P, _P] + [_I] * 8 + [_F, _I]
         + [_P, _P, _P, _P],
     },
     "ssf_band_scatter": {
         "ssf_regroup": [_P, _P, _P] + [_I] * 8 + [_P, _P],
+        "ssf_scatter_add": [_P, _P, _P] + [_I] * 8 + [_P, _P],
         "ssf_scatter_softmax_sum": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
     },
     "ssf_cost_attention": {
         "ssf_cost_attention": [_P] * 9 + [_I] * 5 + [_P, _P, _P],
+    },
+    "ssf_attention": {
+        "ssf_attention": [_P, _P] + [_I] * 4 + [_P, _P, _P],
     },
 }
 

@@ -7,6 +7,8 @@ flat float32 leaves keyed by their Flax path
 2,269,396 values. It was exported from the orbax checkpoint by
 ``tests/test_torch_weights.py --export``, which also pins it to the
 checkpoint; the card's machine has no orbax, so the port reads only the npz.
+``to_flax`` goes the other way, for the trainer's npz checkpoints and for
+comparing the port's parameters with JAX's.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from ssf_slam_tpu_torch.config import FlowNetConfig
 from ssf_slam_tpu_torch.device import resolve_device
-from ssf_slam_tpu_torch.models.layers import Dense
+from ssf_slam_tpu_torch.models.layers import BatchNorm
 
 DEFAULT_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "weights", "ssf_r3ft2.npz")
@@ -53,12 +55,46 @@ def from_flax(tree: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return out
 
 
+def to_flax(model: torch.nn.Module,
+            tensors: dict | None = None) -> dict[str, np.ndarray]:
+    """The converse of ``from_flax``: a TFlow's parameters and running
+    statistics as flat float32 Flax leaves {"params/a/b/kernel": array,
+    "batch_stats/a/b/mean": array}, the layout of the committed npz.
+    ``tensors`` (by state-dict name, e.g. gradients) replaces the state
+    dict."""
+    names = {v[0]: k for k, v in _LEAVES.items() if k != "scale"}
+    out = {}
+    for key, t in (model.state_dict() if tensors is None
+                   else tensors).items():
+        *path, name = key.split(".")
+        owner = model.get_submodule(".".join(path))
+        if isinstance(owner, BatchNorm):
+            leaf = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                    "running_var": "var"}[name]
+        else:
+            leaf = names[name]
+        collection = "batch_stats" if leaf in ("mean", "var") else "params"
+        arr = t.detach().float().cpu().numpy().copy()  # no aliasing
+        out["/".join([collection, *path, leaf])] = np.ascontiguousarray(
+            arr.T if _LEAVES[leaf][1] else arr)
+    return out
+
+
+def save_npz(path: str, tree: dict[str, np.ndarray]) -> None:
+    """Write flat leaves (``to_flax``'s) as an uncompressed npz, through a
+    temporary file so that a reader never sees half a file."""
+    tmp = f"{path}.tmp.npz"
+    np.savez(tmp, **tree)
+    os.replace(tmp, path)
+
+
 def load_tflow(cfg: FlowNetConfig, path: str = DEFAULT_NPZ,
                device: str | torch.device = "cuda"):
-    """TFlow with the committed weights, in eval mode on ``device``; Dense
-    weights in the config's compute type (BatchNorm stays float32, as
-    Flax computes it). With ``fuse_attention`` the cost volumes' weightnets
-    are folded first, from the float32 weights."""
+    """TFlow with the weights of an npz (the committed ones by default, or
+    a ``best.npz`` the port's trainer wrote), in eval mode on ``device``.
+    The Dense layers keep float32 masters and compute in the config's type
+    (BatchNorm in float32, as Flax computes it). With ``fuse_attention``
+    the cost volumes' weightnets are folded, from the float32 weights."""
     from ssf_slam_tpu_torch.models.costvolume import AttentiveCostVolume
     from ssf_slam_tpu_torch.models.tflow import TFlow
 
@@ -69,8 +105,4 @@ def load_tflow(cfg: FlowNetConfig, path: str = DEFAULT_NPZ,
         for m in model.modules():
             if isinstance(m, AttentiveCostVolume):
                 m.fold_weights()
-    dtype = getattr(torch, cfg.dtype)
-    for m in model.modules():
-        if isinstance(m, Dense):
-            m.to(dtype)
     return model.to(dev).eval()

@@ -18,7 +18,8 @@ interpret mode where it is a kernel) and its counterpart in
   its four outputs within 1e-4;
 - the small TFlow with ``fuse_attention=True``: per-level flows and the seg
   logit within 1e-3 (as the unfused model test), finest-flow mean
-  end-point difference within 1e-4 m.
+  end-point difference within 1e-4 m, against the JAX flows committed in
+  ``tflow_small_ref.npz`` (tests/test_torch_model.py makes it).
 """
 
 from __future__ import annotations
@@ -195,31 +196,20 @@ def test_costvolume_fused_matches_jax():
                                    rtol=1e-4, err_msg=name)
 
 
-@pytest.fixture(scope="module")
-def pair():
-    from ssf_slam_tpu.data.synthetic import generate_sequence
-
-    f = generate_sequence(n_frames=2, n_points=1024, seed=3, noise=0.004,
-                          n_moving=4)
-    return f[0]["pos1"][None], f[1]["pos1"][None]
-
-
-def test_small_tflow_fused_attention_matches_jax(pair):
-    from ssf_slam_tpu.config import FlowNetConfig as JFlowNetConfig
-    from ssf_slam_tpu.models import TFlow as JTFlow
+def test_small_tflow_fused_attention_matches_jax():
     from ssf_slam_tpu_torch.config import FlowNetConfig
     from ssf_slam_tpu_torch.weights import load_tflow
 
+    import test_torch_model
+
+    with np.load(test_torch_model.TFLOW_REF) as z:
+        jflows = [z[f"fused_flow{i}"] for i in range(4)]
     net = dict(torch_ref.SMALL_NET, fuse_attention=True)
-    jmodel = JTFlow(cfg=JFlowNetConfig(**net))
-    variables = jax.tree.map(jnp.asarray, torch_ref.load_npz_variables())
-    with pltpu.force_tpu_interpret_mode():
-        jflows, _ = jax.jit(jmodel.apply)(variables, *map(jnp.asarray, pair))
     model = load_tflow(FlowNetConfig(**net), device="cpu")
     with torch.inference_mode():
-        flows, _ = model(*map(torch.from_numpy, pair))
+        flows, _ = model(*map(torch.from_numpy, test_torch_model.small_pair()))
     for got, want in zip(flows, jflows):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3)
-    epd = np.linalg.norm(flows[0][0, :, :3].numpy()
-                         - np.asarray(jflows[0])[0, :, :3], axis=-1).mean()
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-3)
+    epd = np.linalg.norm(flows[0][0, :, :3].numpy() - jflows[0][0, :, :3],
+                         axis=-1).mean()
     assert epd < 1e-4, epd

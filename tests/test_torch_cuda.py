@@ -7,10 +7,15 @@ without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Inputs: Morton-sorted lidar-like clouds (B=2, N=1024, M=2048, C=16) from a
-numpy seed. Tolerances: sqdist, idx, grouped and regroup EXACT; knn_idw
+numpy seed. Tolerances: sqdist, idx, grouped (knn_group and knn_group2's
+twin searches), knn's and regroup EXACT; knn_idw
 (float32) 1e-5 relative + 1e-6 absolute (the same float32 operations, so
-in practice equal); scatter_softmax_sum 1e-5 relative + 1e-6 absolute, for
-the float32 atomics' run-to-run order. cost_attention ([2, 512, 16, 64]
+in practice equal); scatter_softmax_sum and scatter_add 1e-5 relative +
+1e-6 absolute, for the float32 atomics' run-to-run order (so is the
+grouping backward through scatter_add against its plain version);
+attention ([2, 512, 16, 64]): float32 within 1e-5, bf16 within one bf16
+step on 99.99 % and two steps of (|value| + rms) everywhere, and its
+gradient equal to attention_xla's. cost_attention ([2, 512, 16, 64]
 patches from a seed): float32 within 1e-4 (sum orders); bf16 cost_fwd
 within one bf16 step of its value on 99.99 % of the elements and within two
 steps of (|value| + rms) everywhere, w_k within 1e-3 on 99.99 % and 4e-3
@@ -145,3 +150,101 @@ def test_cuda_cost_attention_matches_plain(dtype):
         assert ew.max().item() <= 4e-3
     with pytest.raises(TypeError):  # mixed feature types
         attention.cost_attention_fused(q, k, qc.double(), wn)
+
+
+@pytest.mark.cuda
+def test_cuda_knn_and_knn_group2_match_plain(case):
+    c = case
+    before = dict(banded.LAUNCHES)
+    got = banded.knn(c["q"], c["p"], 16, c["plan"], PARAMS)
+    want = banded.knn_plain(c["q"], c["p"], 16, c["plan"], PARAMS)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qb = c["q"] + 0.05 * torch.randn(c["q"].shape, generator=gen,
+                                     device="cuda")
+    pb = c["p"] + 0.05 * torch.randn(c["p"].shape, generator=gen,
+                                     device="cuda")
+    for f in (c["feats"], c["feats"].to(torch.bfloat16)):
+        got = banded.knn_group2(c["q"], qb, c["p"], pb, f, K, c["plan"],
+                                PARAMS)
+        want = banded.knn_group2_plain(c["q"], qb, c["p"], pb, f, K,
+                                       c["plan"], PARAMS)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert banded.LAUNCHES["knn"] == before["knn"] + 1
+    assert banded.LAUNCHES["knn_group2"] == before["knn_group2"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_scatter_add_matches_plain(case, dtype):
+    c = case
+    _, idx, _ = banded.knn_group(c["q"], c["p"], c["feats"], K, c["plan"],
+                                 PARAMS)
+    idx[:, :256:37, 0] = M - 1  # out of the first tile's band: dropped
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    vals = torch.randn(B, N, K, C, device="cuda", generator=gen)
+    vals = vals.to(getattr(torch, dtype))
+    before = banded.LAUNCHES["scatter_add"]
+    got = banded.scatter_add(idx, vals, c["plan"], PARAMS, M)
+    assert banded.LAUNCHES["scatter_add"] == before + 1
+    want = banded.scatter_add_plain(idx, vals, c["plan"], PARAMS, M)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_grouping_backward_through_scatter_add(case):
+    """nn_knn_group's backward on the card sums segments with the
+    scatter_add kernel; the plain version on the same graph agrees."""
+    c = case
+    f = c["feats"].clone().requires_grad_()
+    _, grouped, _, _ = nb.nn_knn_group(c["q"], c["p"], f, K, "banded",
+                                       box=nb.cloud_box(c["q"], c["p"]))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    r = torch.randn(grouped.shape, device="cuda", generator=gen)
+    before = banded.LAUNCHES["scatter_add"]
+    (got,) = torch.autograd.grad(grouped, f, r, retain_graph=True)
+    assert banded.LAUNCHES["scatter_add"] == before + 1
+    kernel = banded.scatter_add
+    banded.scatter_add = banded.scatter_add_plain
+    try:
+        (want,) = torch.autograd.grad(grouped, f, r)
+    finally:
+        banded.scatter_add = kernel
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_matches_plain(dtype):
+    """attention_fused against attention_plain on [2, 512, 16, 64]; bf16
+    within one bf16 step (2^-7 of the value) on 99.99 % and two steps of
+    (|value| + rms) everywhere, as chip_smoke.py's ATTENTION_TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dt = getattr(torch, dtype)
+    q, k = (0.3 * torch.randn(2, 512, 16, 64, device="cuda", generator=gen)
+            for _ in range(2))
+    q, k = q.to(dt), k.to(dt)
+    before = attention.LAUNCHES["attention"]
+    got = attention.attention_fused(q, k)
+    assert attention.LAUNCHES["attention"] == before + 1
+    want = attention.attention_plain(q, k)
+    for g, w in zip(got, want):
+        assert g.dtype == dt
+        if dtype == "float32":
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        else:
+            err, ref = (g.float() - w.float()).abs(), w.float().abs()
+            rms = ref.pow(2).mean().sqrt()
+            assert (err <= 1e-6 + 2.0 ** -7 * ref).float().mean() >= 0.9999
+            assert bool((err <= 2 * 2.0 ** -7 * (ref + rms)).all())
+    qg, kg = (t.float().requires_grad_() for t in (q, k))
+    qa, ka = attention.attention_fused(qg, kg)
+    (qa.sum() + 2.0 * ka.sum()).backward()
+    q2, k2 = (t.float().requires_grad_() for t in (q, k))
+    qa2, ka2 = attention.attention_xla(q2, k2)
+    (qa2.sum() + 2.0 * ka2.sum()).backward()
+    torch.testing.assert_close(qg.grad, q2.grad)
+    torch.testing.assert_close(kg.grad, k2.grad)

@@ -4,7 +4,11 @@
   over 4 frames, against JAX ``engine/fused.py::run_sequence_fused``;
 - the port at full width (8192 points, f32, committed weights) over the
   first 2 frames of the bench sequence, against the committed JAX fixture
-  ``tests/fixtures/torch_port/ssf_fused_ref.npz``, made by
+  ``tests/fixtures/torch_port/ssf_fused_ref.npz``.
+
+The small size's JAX side is committed too (``ssf_fused_small_ref.npz``:
+live, it cost the suite a minute and a half, most of it compiling
+interpret-mode Pallas). Both fixtures are made by
 
       JAX_PLATFORMS=cpu python tests/test_torch_fused.py --make-fixture
 
@@ -33,6 +37,7 @@ torch.set_num_threads(1)
 
 N_FIXTURE_FRAMES = 8
 T_TOL, Q_TOL = 1e-4, 1e-5
+SMALL_REF = os.path.join(torch_ref.FIXTURE_DIR, "ssf_fused_small_ref.npz")
 
 
 def bench_frames(n_frames: int = N_FIXTURE_FRAMES):
@@ -98,13 +103,15 @@ def _assert_odometry(got: dict, want: dict, n: int) -> None:
 
 @pytest.fixture(scope="module")
 def small_frames():
-    from ssf_slam_tpu.data.synthetic import generate_sequence
+    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
 
     return generate_sequence(n_frames=4, n_points=1024, seed=0, noise=0.004,
                              n_moving=4)
 
 
-def test_small_run_sequence_fused_matches_jax(small_frames):
+def make_small_fixture(path: str = SMALL_REF) -> None:
+    """JAX ``run_sequence_fused`` of the small TFlow (Pallas in interpret
+    mode) over the 4 small frames."""
     import dataclasses
 
     import jax
@@ -115,14 +122,12 @@ def test_small_run_sequence_fused_matches_jax(small_frames):
     from ssf_slam_tpu.config import FlowNetConfig as JFlowNetConfig
     from ssf_slam_tpu.config import PipelineConfig as JPipelineConfig
     from ssf_slam_tpu.config import Variant as JVariant
+    from ssf_slam_tpu.data.synthetic import generate_sequence
     from ssf_slam_tpu.engine.fused import run_sequence_fused as j_run
     from ssf_slam_tpu.models import TFlow as JTFlow
-    from ssf_slam_tpu_torch.config import FlowNetConfig, LidarConfig
-    from ssf_slam_tpu_torch.config import PipelineConfig
-    from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
-    from ssf_slam_tpu_torch.ops import banded
-    from ssf_slam_tpu_torch.weights import load_tflow
 
+    frames = generate_sequence(n_frames=4, n_points=1024, seed=0,
+                               noise=0.004, n_moving=4)
     # the JAX step also runs the mapping back end (which does not feed
     # these outputs): keep it small
     jcfg = JPipelineConfig(
@@ -135,8 +140,21 @@ def test_small_run_sequence_fused_matches_jax(small_frames):
     jmodel = JTFlow(cfg=JFlowNetConfig(**torch_ref.SMALL_NET))
     variables = jax.tree.map(jnp.asarray, torch_ref.load_npz_variables())
     with pltpu.force_tpu_interpret_mode():
-        _, want = j_run(jmodel, variables, small_frames, jcfg)
+        _, want = j_run(jmodel, variables, frames, jcfg)
+    np.savez(path, **{k: np.asarray(want[k])
+                      for k in ("rel_q", "rel_t", "odom_q", "odom_t")})
+    print(f"wrote {path}")
 
+
+def test_small_run_sequence_fused_matches_jax(small_frames):
+    from ssf_slam_tpu_torch.config import FlowNetConfig, LidarConfig
+    from ssf_slam_tpu_torch.config import PipelineConfig
+    from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
+    from ssf_slam_tpu_torch.ops import banded
+    from ssf_slam_tpu_torch.weights import load_tflow
+
+    with np.load(SMALL_REF) as z:
+        want = {k: z[k] for k in z.files}
     model = load_tflow(FlowNetConfig(**torch_ref.SMALL_NET), device="cpu")
     cfg = PipelineConfig(lidar=LidarConfig(max_points=1024))
     banded.reset_launches()
@@ -182,9 +200,12 @@ def test_full_width_first_frames_match_fixture(fixture_ref):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--make-fixture"]:
-        sys.exit("usage: python tests/test_torch_fused.py --make-fixture")
+    if sys.argv[1:] not in (["--make-fixture"], ["--make-fixture", "small"]):
+        sys.exit("usage: python tests/test_torch_fused.py --make-fixture "
+                 "[small]")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    make_fixture()
+    make_small_fixture()
+    if sys.argv[2:] != ["small"]:
+        make_fixture()

@@ -11,6 +11,13 @@ Tolerances: the per-level flows and the seg logit agree to 1e-3 absolute
 neighbours; the differences are matmul and softmax sum orders compounded
 through four refinement levels. The mean end-point difference of the finest
 flow is held to 1e-4 m.
+
+The JAX side is committed (``tflow_small_ref.npz``, with the
+``fuse_attention=True`` flows that tests/test_torch_attention.py reads):
+live, its interpret-mode Pallas compile, which JAX's persistent cache
+cannot keep, cost the suite a minute per file. It is made by
+
+      JAX_PLATFORMS=cpu python tests/test_torch_model.py --make-fixture
 """
 
 from __future__ import annotations
@@ -18,12 +25,9 @@ from __future__ import annotations
 import os
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_ref  # noqa: E402
@@ -31,27 +35,57 @@ import torch_ref  # noqa: E402
 torch.set_num_threads(1)
 
 ATOL = 1e-3
+TFLOW_REF = os.path.join(torch_ref.FIXTURE_DIR, "tflow_small_ref.npz")
 
 
-@pytest.fixture(scope="module")
-def pair():
-    from ssf_slam_tpu.data.synthetic import generate_sequence
+def small_pair():
+    """Frames 0 and 1 of the street sequence, seed 3, 1024 points."""
+    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
 
     f = generate_sequence(n_frames=2, n_points=1024, seed=3, noise=0.004,
                           n_moving=4)
     return f[0]["pos1"][None], f[1]["pos1"][None]
 
 
-@pytest.fixture(scope="module")
-def jax_out(pair):
+def make_fixture(path: str = TFLOW_REF) -> None:
+    """The JAX TFlow's flows and FPS chain on ``small_pair`` (float32,
+    committed weights, Pallas in interpret mode), and its flows with
+    ``fuse_attention=True``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
     from ssf_slam_tpu.config import FlowNetConfig
     from ssf_slam_tpu.models import TFlow
 
-    model = TFlow(cfg=FlowNetConfig(**torch_ref.SMALL_NET))
     variables = jax.tree.map(jnp.asarray, torch_ref.load_npz_variables())
+    out = {}
+    pair = [jnp.asarray(a) for a in small_pair()]
     with pltpu.force_tpu_interpret_mode():
-        flows, fps = jax.jit(model.apply)(variables, *map(jnp.asarray, pair))
-    return [np.asarray(f) for f in flows], [np.asarray(i) for i in fps]
+        for fused in (False, True):
+            net = dict(torch_ref.SMALL_NET, fuse_attention=fused)
+            model = TFlow(cfg=FlowNetConfig(**net))
+            flows, fps = jax.jit(model.apply)(variables, *pair)
+            pre = "fused_flow" if fused else "flow"
+            out.update({f"{pre}{i}": np.asarray(f)
+                        for i, f in enumerate(flows)})
+            if not fused:
+                out.update({f"fps{i}": np.asarray(x)
+                            for i, x in enumerate(fps)})
+    np.savez(path, **out)
+    print(f"wrote {path}")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return small_pair()
+
+
+@pytest.fixture(scope="module")
+def jax_out():
+    with np.load(TFLOW_REF) as z:
+        return ([z[f"flow{i}"] for i in range(4)],
+                [z[f"fps{i}"] for i in range(3)])
 
 
 @pytest.fixture(scope="module")
@@ -88,3 +122,12 @@ def test_finest_flow_end_point_difference(jax_out, torch_out):
     assert epe < 1e-4, epe
     # the static / moving verdict the ego-motion uses
     assert ((t[..., 3] < 0) == (j[..., 3] < 0)).mean() > 0.999
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--make-fixture"]:
+        sys.exit("usage: python tests/test_torch_model.py --make-fixture")
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    make_fixture()

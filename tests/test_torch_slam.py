@@ -19,8 +19,11 @@
   end-point difference of 1e-5 m.
 
 Every test here rounds the port's kNN expansion as XLA's CPU compiler
-rounds the JAX package's (``torch_ref.xla_cpu_sqdist``). The fixture is
-made by
+rounds the JAX package's (``torch_ref.xla_cpu_sqdist``). The JAX side of
+the small step and of the loop circuit is committed too
+(``ssf_slam_small_ref.npz``: running it live cost minutes of the suite's
+clock, most of it compiling interpret-mode Pallas, which the persistent
+cache cannot keep). Both fixtures are made by
 
       JAX_PLATFORMS=cpu python tests/test_torch_slam.py --make-fixture
 """
@@ -47,6 +50,7 @@ def _xla_cpu_knn(monkeypatch):
 
 
 SLAM_REF = os.path.join(torch_ref.FIXTURE_DIR, "ssf_slam_ref.npz")
+SMALL_REF = os.path.join(torch_ref.FIXTURE_DIR, "ssf_slam_small_ref.npz")
 N_FIXTURE_FRAMES = 8
 T_TOL, Q_TOL = 1e-4, 1e-5
 POSE_KEYS = (("pose_t", T_TOL), ("odom_t", T_TOL), ("rel_t", T_TOL),
@@ -111,28 +115,66 @@ def test_loop_trajectory_byte_identical():
                 assert a[key].tobytes() == b[key].tobytes(), key
 
 
-def test_small_slam_step_matches_jax():
+def _small_frames():
+    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
+
+    return generate_sequence(n_frames=16, n_points=1024, seed=0, noise=0.004,
+                             n_moving=4)
+
+
+LOOP_STEP = dict(mapping=dict(max_keyframes=96, loop_search_radius=8.0,
+                              loop_time_gap=5.0, loop_skip_after_close=10,
+                              submap_points=4096))
+
+
+def make_small_fixture(path: str = SMALL_REF) -> None:
+    """The JAX side of the small step (``run_sequence_fused`` of the small
+    TFlow, Pallas in interpret mode, 16 frames) and of the loop circuit
+    (``run_sequence`` with the provided flow, 72 frames)."""
     import jax
     import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
 
     from ssf_slam_tpu.config import FlowNetConfig as JFlowNetConfig
-    from ssf_slam_tpu.engine.fused import run_sequence_fused as j_run
+    from ssf_slam_tpu.engine.fused import run_sequence_fused
+    from ssf_slam_tpu.engine.pipeline import run_sequence
     from ssf_slam_tpu.models import TFlow as JTFlow
+
+    jcfg, _ = _configs(1024, SMALL_STEP)
+    jmodel = JTFlow(cfg=JFlowNetConfig(**torch_ref.SMALL_NET))
+    variables = jax.tree.map(jnp.asarray, torch_ref.load_npz_variables())
+    with pltpu.force_tpu_interpret_mode():
+        _, small = run_sequence_fused(jmodel, variables, _small_frames(),
+                                      jcfg)
+    jcfg, _ = _configs(1024, LOOP_STEP)
+    jstate, loop = run_sequence(_loop_frames(), jcfg)
+    np.savez(
+        path,
+        **{f"small/{k}": np.asarray(small[k])
+           for k in (*dict(POSE_KEYS), *EXACT_KEYS)},
+        **{f"loop/{k}": np.asarray(loop[k])
+           for k in ("is_keyframe", "pose_t", "odom_t")},
+        **{"loop/n_loops": np.asarray(int(jstate.map_state.n_loops))})
+    print(f"wrote {path}")
+
+
+@pytest.fixture(scope="module")
+def small_ref():
+    with np.load(SMALL_REF) as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_small_slam_step_matches_jax(small_ref):
     from ssf_slam_tpu_torch.config import FlowNetConfig
-    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
     from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
     from ssf_slam_tpu_torch.mapping import keyframes
     from ssf_slam_tpu_torch.ops import banded
     from ssf_slam_tpu_torch.weights import load_tflow
 
-    frames = generate_sequence(n_frames=16, n_points=1024, seed=0,
-                               noise=0.004, n_moving=4)
-    jcfg, cfg = _configs(1024, SMALL_STEP)
-    jmodel = JTFlow(cfg=JFlowNetConfig(**torch_ref.SMALL_NET))
-    variables = jax.tree.map(jnp.asarray, torch_ref.load_npz_variables())
-    with pltpu.force_tpu_interpret_mode():
-        _, want = j_run(jmodel, variables, frames, jcfg)
+    frames = _small_frames()
+    _, cfg = _configs(1024, SMALL_STEP)
+    want = {k[len("small/"):]: v for k, v in small_ref.items()
+            if k.startswith("small/")}
 
     model = load_tflow(FlowNetConfig(**torch_ref.SMALL_NET), device="cpu")
     accepted = []
@@ -167,21 +209,17 @@ def _loop_frames():
     return frames
 
 
-def test_loop_closure_full_engine_matches_jax():
-    from ssf_slam_tpu.engine.pipeline import run_sequence as j_run
+def test_loop_closure_full_engine_matches_jax(small_ref):
     from ssf_slam_tpu_torch.engine.pipeline import run_sequence
 
-    frames = _loop_frames()
-    # gates scaled to the 72-frame circuit as in tests/test_engine.py; the
-    # refine stays on (it is part of the step this holds)
-    step = dict(mapping=dict(max_keyframes=96, loop_search_radius=8.0,
-                             loop_time_gap=5.0, loop_skip_after_close=10,
-                             submap_points=4096))
-    jcfg, cfg = _configs(1024, step)
-    jstate, want = j_run(frames, jcfg)
-    state, got = run_sequence(frames, cfg, device="cpu")
-    assert int(jstate.map_state.n_loops) > 0
-    assert state.map_state.n_loops == int(jstate.map_state.n_loops)
+    # gates scaled to the 72-frame circuit as in tests/test_engine.py
+    # (LOOP_STEP); the refine stays on (it is part of the step this holds)
+    _, cfg = _configs(1024, LOOP_STEP)
+    want = {k[len("loop/"):]: v for k, v in small_ref.items()
+            if k.startswith("loop/")}
+    state, got = run_sequence(_loop_frames(), cfg, device="cpu")
+    assert int(want["n_loops"]) > 0
+    assert state.map_state.n_loops == int(want["n_loops"])
     np.testing.assert_array_equal(got["is_keyframe"], want["is_keyframe"])
     np.testing.assert_allclose(got["pose_t"], want["pose_t"], atol=1e-3)
     np.testing.assert_allclose(got["odom_t"], want["odom_t"], atol=1e-3)
@@ -295,9 +333,12 @@ def test_full_width_fused_attention_flow_matches_fixture(slam_ref):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--make-fixture"]:
-        sys.exit("usage: python tests/test_torch_slam.py --make-fixture")
+    if sys.argv[1:] not in (["--make-fixture"], ["--make-fixture", "small"]):
+        sys.exit("usage: python tests/test_torch_slam.py --make-fixture "
+                 "[small]")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    make_fixture()
+    make_small_fixture()
+    if sys.argv[2:] != ["small"]:
+        make_fixture()

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 import sys
+import zlib
 
 import numpy as np
 
@@ -125,3 +126,52 @@ def round_knn_like_xla_cpu(monkeypatch) -> None:
             knn.pairwise_sqdist = plain_sqdist
 
     monkeypatch.setattr(knn, "_knn_chunk", chunk)
+
+
+def jax_train_step(net: dict, variables: dict, batch: dict,
+                   seg_class_weights) -> tuple:
+    """One JAX train step's loss, gradients and new batch statistics: the
+    loss_fn of ``ssf_slam_tpu/train/trainer.py::make_train_step`` (train
+    mode, ``batch_stats`` mutable, ``multi_scale_loss`` with the joint-seg
+    BCE), Pallas in interpret mode. Returns (loss float, {flat "params/.."
+    gradient}, {flat "batch_stats/.." array})."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from ssf_slam_tpu.config import FlowNetConfig
+    from ssf_slam_tpu.models import TFlow
+    from ssf_slam_tpu.models.tflow import multi_scale_loss
+
+    model = TFlow(cfg=FlowNetConfig(**net))
+    b = {k: jnp.asarray(v) for k, v in batch.items()}
+    variables = jax.tree.map(jnp.asarray, variables)
+
+    def loss_fn(params):
+        (flows, fps), upd = model.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            b["pos1"], b["pos2"], train=True, mutable=["batch_stats"])
+        loss = multi_scale_loss(
+            flows, b["gt"], b["mask1"].astype(jnp.float32), fps,
+            seg_labels=b["s_fg_mask"], seg_class_weights=seg_class_weights)
+        return loss, upd["batch_stats"]
+
+    with pltpu.force_tpu_interpret_mode():
+        (loss, stats), grads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(variables["params"])
+    return (float(loss), flatten({"params": grads}),
+            flatten({"batch_stats": stats}))
+
+
+def count_sketch(x: np.ndarray, key: str, d: int = 64) -> np.ndarray:
+    """A CountSketch of ``x`` in ``d`` buckets: each element adds, with a
+    random sign, into a random bucket (both fixed by ``key``). It is linear,
+    and the norm of a sketch is the norm of the vector to within about
+    sqrt(2 / d) (18 % at d = 64) for vectors not dominated by a few
+    elements, so a committed sketch of a JAX gradient stands in for the
+    gradient (megabytes) when the port's is compared with it."""
+    flat = np.asarray(x, np.float64).reshape(-1)
+    rng = np.random.default_rng(zlib.crc32(key.encode()))
+    bucket = rng.integers(0, d, flat.size)
+    sign = rng.integers(0, 2, flat.size) * 2.0 - 1.0
+    return np.bincount(bucket, weights=sign * flat, minlength=d)
