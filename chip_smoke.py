@@ -7,8 +7,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It imports nothing of JAX and nothing of the JAX package. Phases, each
 printing its own line and failing loudly:
 
-1. build: compile every CUDA source of the port with nvcc (all at once)
-   and print the card's name and power limit;
+1. build: compile every CUDA source of the port with nvcc (all at once,
+   beside three measurement builds of band_knn.cu with the split S fixed at
+   8, 16 and 32), check in nvcc's -Xptxas -v report (kept beside each
+   library) that every knn_group / knn_idw instance has a 0-byte stack
+   frame and no spills (printing the shipped library's lines) and print the
+   card's name and power limit;
 2. kernels: each of the nine kernels at its largest main-path shape, on
    Morton-sorted clouds of the bench sequence (the cost attention on the
    level-0 cost volume's own inputs, with the folded weightnet of the
@@ -20,7 +24,15 @@ printing its own line and failing loudly:
    knn_group2 exact; scatter_add as the scatter; attention as stated at
    ATTENTION_TOL), and timed with CUDA
    events beside the plain version, one PyTorch library call where one
-   computes the same function, and the bound of the card;
+   computes the same function, and the bound of the card. Then
+   knn_group and knn_idw, redesigned for the card, at every distinct shape
+   their wrappers receive in a 2-frame run of the main path (batch 1), and
+   at the level-0 shapes at batch 1 and 4, warm and with the L2 flushed
+   before each launch: exact against the plain version (knn_idw's output as
+   above; float32 to 1e-5 relative) with the split S (lanes per query) the
+   shipped library picks and with each measurement build's; timed as above
+   and, to compare the splits, alone (queued behind a device-side sleep, so
+   that no host work is timed) with each;
 3. f32: the committed weights over the first 8 bench frames through the
    whole SSF step against the JAX reference fixtures
    (tests/fixtures/torch_port/ssf_fused_ref.npz, ssf_slam_ref.npz):
@@ -69,6 +81,7 @@ Exits nonzero, printing no result, when CUDA is absent or any phase fails
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -83,6 +96,7 @@ N_POINTS, N_FRAMES, N_FIXTURE_FRAMES = 8192, 32, 8
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, non-tensor
 # f32, bf16 tensor cores
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+SLEEP_HZ = 2.0e9  # cycles per second of torch.cuda._sleep, >= the SM clock
 FIXTURES = os.path.join("tests", "fixtures", "torch_port")
 FIXTURE = os.path.join(FIXTURES, "ssf_fused_ref.npz")
 SLAM_FIXTURE = os.path.join(FIXTURES, "ssf_slam_ref.npz")
@@ -183,6 +197,50 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over iters launches that the host queues
+    behind a device-side sleep longer than its own time to queue them, so
+    that the events time the kernels alone, not a wrapper's host work
+    (which cuda_ms counts where it outlasts a small kernel)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(iters * host_s + 1e-3, 1.0) * SLEEP_HZ))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one fn() with a cold L2: before each launch a
+    256 MB write (above the card's 50 MB of L2) evicts its inputs; events
+    around each launch. As in cuda_ms, the host queues the launch while the
+    device works (here on the write), so its work counts only where it
+    outlasts that."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    pairs = []
+    torch.cuda.synchronize()
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
 def bound(nbytes: float, flops: float,
           peak_ops: float = PEAK_F32) -> tuple[float, str]:
     """The least time (ms) for the work and what sets it: bytes over the
@@ -193,22 +251,70 @@ def bound(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def group_bound(b, n, m, k, c, esize, wb) -> tuple[float, str]:
+    """knn_group's bound: clouds, feats, sqdist + idx and the grouped rows
+    moved once; 8 operations per band candidate."""
+    return bound(b * ((n + m) * 3 * 4 + m * c * esize + n * k * (2 * 4)
+                      + n * k * c * esize), b * n * wb * 8)
+
+
+def idw_bound(b, n, m, k, c, esize, wb) -> tuple[float, str]:
+    """knn_idw's bound: clouds, feats, the [N, C] output and sqdist + idx
+    moved once; 8 operations per band candidate, 2 per mixed element."""
+    return bound(b * ((n + m) * 3 * 4 + m * c * esize + n * c * esize
+                      + n * k * (2 * 4)), b * (n * wb * 8 + n * k * c * 2))
+
+
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
+
+
+# lanes per query that the measurement builds of band_knn.cu fix for
+# knn_group and knn_idw (the shipped library picks S by query count)
+SPLITS = (8, 16, 32)
+SPLIT_BUILDS = tuple(("ssf_band_knn", (f"SSF_KNN_SPLIT={s}",))
+                     for s in SPLITS)
+NO_FRAME = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+
+
+def check_frames(label: str, log: str) -> list[str]:
+    """Checks that every knn_group_kernel / knn_idw_kernel entry of an
+    ``nvcc -Xptxas -v`` report has a 0-byte stack frame and no spills;
+    returns the entries' lines."""
+    lines, out = log.splitlines(), []
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for (\S+)", line)
+        if m and ("knn_group_kernel" in m.group(1)
+                  or "knn_idw_kernel" in m.group(1)):
+            frame = lines[i + 1].strip() if i + 1 < len(lines) else ""
+            check(frame == NO_FRAME, "build", f"{label}: {m.group(1)}: {frame}")
+            out.append(f"{m.group(1)}: {frame}")
+    return out
 
 
 def phase_build() -> str:
     from ssf_slam_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    reports = cuda_build.build_all(verbose=True)
-    for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say("build", f"{name}: {line.strip()}")
+    cuda_build.build_all(variants=SPLIT_BUILDS)
+    for name, defines in [("ssf_band_knn", ())] + list(SPLIT_BUILDS):
+        entries = check_frames(name + "".join(f" -D{d}" for d in defines),
+                               cuda_build.ptxas_report(name, defines))
+        # K 3, 5, 7, 8, 16, 32 x two element types x two kernels, and x S
+        # 8, 16, 32 in the shipped library
+        check(len(entries) == (24 if defines else 72), "build",
+              f"{name} {defines}: {len(entries)} knn_group / knn_idw entries")
+        if not defines:
+            for line in entries:
+                say("build", f"{name}: {line}")
+        else:
+            say("build", f"{name} -D{defines[0]}: {len(entries)} knn_group "
+                f"/ knn_idw entries, each {NO_FRAME}")
     for name in cuda_build.SOURCES:
         cuda_build.load(name)
+    for name, defines in SPLIT_BUILDS:
+        cuda_build.load(name, defines)
     say("build", f"{len(cuda_build.SOURCES)} libraries ready in "
         f"{time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
@@ -264,9 +370,7 @@ def phase_kernels(frames, dev) -> dict:
                                             params)),
         plain_ms=cuda_ms(lambda: banded.knn_group_plain(
             pc1, pc2, feats, k, plan, params)),
-        library_ms=None,
-        bound=bound((n + m) * 3 * f32 + m * c * f32 + n * k * (2 * 4)
-                    + n * k * c * f32, n * wb * 8))
+        library_ms=None, bound=group_bound(1, n, m, k, c, f32, wb))
     idx_l0, plan_l0, params_l0 = got[1], plan, params
 
     # knn_idw: level-0 upsample_multi, 8192 <- 2048, k = 7, C = 132 bf16
@@ -290,9 +394,7 @@ def phase_kernels(frames, dev) -> dict:
                                           params)),
         plain_ms=cuda_ms(lambda: banded.knn_idw_plain(
             pc1, sparse2, fields, k, plan, params)),
-        library_ms=None,
-        bound=bound((n + m) * 3 * f32 + m * c * bf16 + n * c * bf16
-                    + n * k * (2 * 4), n * wb * 8 + n * k * c * 2))
+        library_ms=None, bound=idw_bound(1, n, m, k, c, bf16, wb))
 
     # scatter_softmax_sum and regroup: level-0 cost volume, N = 8192,
     # K = 16, C = 64 bf16, under the knn_group plan above
@@ -401,6 +503,151 @@ def phase_kernels(frames, dev) -> dict:
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]}), max_abs_err {r['max_abs_err']:.3g}")
     return out
+
+
+# the main path's knn_group and knn_idw calls by (N, M, k): its layers
+SPLIT_LAYERS = {
+    "knn_group": {(2048, 8192, 16): "sa1", (512, 2048, 16): "sa2",
+                  (2048, 512, 16): "su1", (8192, 2048, 16): "su0",
+                  (2048, 2048, 16): "flow1_r", (8192, 8192, 16): "flow0_r"},
+    "knn_idw": {(8192, 2048, 7): "L0 upsample_multi",
+                (8192, 2048, 3): "L0 upsample_flow",
+                (8192, 8192, 7): "L0 point_warping",
+                (2048, 512, 5): "L1 upsample_multi",
+                (2048, 512, 3): "L1 upsample_flow",
+                (2048, 2048, 7): "L1 point_warping"},
+}
+
+
+def split_build(split: int):
+    """A context in which knn_group and knn_idw launch with S = split lanes
+    per query (a measurement build of band_knn.cu); 0: the shipped
+    library, whose S depends on the query count."""
+    from ssf_slam_tpu_torch.ops import cuda_build
+
+    if split == 0:
+        return contextlib.nullcontext()
+    return cuda_build.variant(*SPLIT_BUILDS[SPLITS.index(split)])
+
+
+def main_path_calls(frames, dev) -> dict:
+    """{kernel: {shape key: [inputs, calls]}} of knn_group and knn_idw in a
+    2-frame bf16 run of the main path (fuse_attention off; the carry's
+    tower, then two scans), the inputs of each shape's first call kept."""
+    from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
+    from ssf_slam_tpu_torch.ops import banded
+
+    seen = {name: {} for name in SPLIT_LAYERS}
+    wrapped = {name: getattr(banded, name) for name in seen}
+
+    def spy(name):
+        def call(query, points, feats, k, plan, params):
+            key = (query.shape[0], query.shape[1], points.shape[1], k,
+                   feats.shape[-1], str(feats.dtype).split(".")[-1],
+                   params[1] * params[2])
+            if key not in seen[name]:
+                seen[name][key] = [(query.clone(), points.clone(),
+                                    feats.clone(), k,
+                                    (plan[0].clone(), plan[1]), params), 0]
+            seen[name][key][1] += 1
+            return wrapped[name](query, points, feats, k, plan, params)
+        return call
+
+    model = bf16_model(dev, fuse=False)
+    for name in seen:
+        setattr(banded, name, spy(name))
+    try:
+        run_sequence_fused(model, frames[:2], device=dev)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(banded, name, fn)
+    torch.cuda.synchronize()
+    return seen
+
+
+def time_split(name: str, args, tag: str, cold: bool = False) -> None:
+    """One redesigned kernel at one shape: exact against its plain version
+    with the shipped library and with each measurement build of S. Timed
+    with cuda_ms (the yardstick of every ms in phase 2; cold too if asked)
+    beside the plain version and its bound, and alone (queued_ms) with the
+    shipped library and with each S. Prints one [kernels] line."""
+    from ssf_slam_tpu_torch.ops import banded
+
+    kernel, plain = getattr(banded, name), getattr(banded, name + "_plain")
+    q, p, f, k, plan, params = args
+    want = plain(*args)
+    by_split = {}
+    for split in SPLITS + (0,):
+        with split_build(split):
+            got = kernel(*args)
+            if name == "knn_group":
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      "kernels", f"{name} {tag} S={split}: differs from plain")
+            else:
+                check(torch.equal(got[1], want[1])
+                      and torch.equal(got[2], want[2]), "kernels",
+                      f"{name} {tag} S={split}: sqdist/idx differ")
+                # float32: the same operations (1e-5 relative as the
+                # tests); bf16: one rounding step, as for the level-0
+                # record above
+                rel = 2.0 ** -8 if f.dtype == torch.bfloat16 else 1e-5
+                err = (got[0].float() - want[0].float()).abs()
+                check(bool((err <= 1e-6 + rel * want[0].float().abs()).all()),
+                      "kernels",
+                      f"{name} {tag} S={split}: out differs by {err.max()}")
+            by_split[split] = queued_ms(lambda: kernel(*args))
+    b, n, _ = q.shape
+    m, c = p.shape[1], f.shape[-1]
+    alone, wb = by_split.pop(0), params[1] * params[2]
+    ms = cuda_ms(lambda: kernel(*args))
+    plain_ms = cuda_ms(lambda: plain(*args))
+    bound_ms, bound_by = (group_bound if name == "knn_group" else idw_bound)(
+        b, n, m, k, c, f.element_size(), wb)
+    cold_note = f", cold {cold_ms(lambda: kernel(*args)):.4f}" if cold else ""
+    say("kernels", f"{name} {tag} B={b} {n}<-{m} k={k} C={c} "
+        f"{str(f.dtype).split('.')[-1]} wb={wb}: kernel {ms:.4f} ms"
+        f"{cold_note}; alone {alone:.4f} ms ("
+        + ", ".join(f"S={sp} {t:.4f}" for sp, t in by_split.items())
+        + f"), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), share {bound_ms / ms:.3f}")
+
+
+def phase_shapes(frames, dev) -> None:
+    """knn_group and knn_idw (redesigned for this card) at every distinct
+    shape of the main path's scan, batch 1; at the level-0 shapes also at
+    batch 4 (the training step's) and cold. Each exact against its plain
+    version at every split S; times at each S."""
+    from ssf_slam_tpu_torch.engine.fused import sequence_box, stack_fused_scans
+    from ssf_slam_tpu_torch.ops import neighbors as nb
+
+    for name, shapes in main_path_calls(frames, dev).items():
+        for key, (args, calls) in sorted(shapes.items()):
+            layer = SPLIT_LAYERS[name].get((key[1], key[2], key[3]), "?")
+            time_split(name, args,
+                       f"{layer} ({calls} calls in the 2-scan run)")
+    # level 0 at batch 1 and 4, warm and cold: frames 2i -> 2i + 1, each
+    # sorted under the sequence box as sorted_pair sorts frames 0 and 1
+    scans = stack_fused_scans(frames, N_POINTS)
+    box = sequence_box(scans["points"], device=dev)
+    clouds = [nb.morton_sort(torch.as_tensor(scans["points"][i:i + 1],
+                                             device=dev), box=box)[0]
+              for i in range(8)]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for bsz in (1, 4):
+        q = torch.cat(clouds[0:2 * bsz:2])
+        p = torch.cat(clouds[1:2 * bsz:2])
+        sparse = p[:, ::4].contiguous()
+        feats = torch.randn(bsz, N_POINTS, 99, generator=gen, device=dev)
+        fields = torch.randn(bsz, sparse.shape[1], 132, generator=gen,
+                             device=dev).to(torch.bfloat16)
+        params = nb.band_params(N_POINTS, N_POINTS, 16)
+        plan = nb.make_plan(q, p, params, 64.0, box)
+        time_split("knn_group", (q, p, feats, 16, plan, params),
+                   "flow0_r level 0", cold=True)
+        params = nb.band_params(N_POINTS, sparse.shape[1], 7)
+        plan = nb.make_plan(q, sparse, params, 64.0, box)
+        time_split("knn_idw", (q, sparse, fields, 7, plan, params),
+                   "upsample_multi level 0", cold=True)
 
 
 def cost_attention_inputs(frames, dev):
@@ -1092,6 +1339,7 @@ def main() -> int:
     phase_build()
     frames = bench_frames()
     records = phase_kernels(frames, dev)
+    phase_shapes(frames, dev)
     phase_f32(frames, dev)
     launches, e2e = phase_main(frames, dev, fuse=False)
     launches_fused, e2e_fused = phase_main(frames, dev, fuse=True)

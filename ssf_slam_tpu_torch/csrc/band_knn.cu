@@ -6,7 +6,6 @@
 //   ssf_slam_tpu/ops/banded.py::banded_knn_group  (_knn_group_kernel_body)
 //   ssf_slam_tpu/ops/banded.py::banded_knn_group2 (_knn_group2_kernel_body)
 //   ssf_slam_tpu/ops/banded.py::banded_knn_idw    (_knn_idw_kernel_body)
-// All share one device routine, band_topk, for the band top-k.
 //
 // What it computes, per query n of tile t = n / 256 (Morton-sorted clouds):
 //   band     = target rows [base, base + wb), base = b0[t] * wblk,
@@ -32,24 +31,39 @@
 //              out[n, :] = sum_j w_j * f32(feats[idx_j, :]) in slot order,
 //              accumulated in float32 and rounded once to the feats type
 //
-// What bounds it on the H100: at the main-path shapes (8192 x 8192, k = 16,
-// C = 99 float32) knn_group writes a 52 MB grouped tensor and reads 3 MB,
-// against 50 MFLOP of distances: it is bound by bytes, and the output write
-// is most of them. knn_idw writes only [N, C] and is bound by the
-// per-thread selection (N * wb key compares with a k-deep insertion), which
-// the device-memory and FLOP bounds do not count; so is knn, which writes
-// only [N, k] distances and indices. knn_group2 is two knn_group's work.
-//
-// Design (right and simple first; no TMA or wgmma):
-// - one block of 256 threads per query tile; the block stages the
-//   wb <= 768 band points (<= 9 KB) in shared memory, and each thread keeps
-//   its query's sorted top-k keys in a local array (k <= 32). A candidate
-//   costs one compare against the current k-th key; only winners pay the
-//   insertion;
-// - the TPU kernel's one-hot MXU matmuls are layout tricks for a machine
-//   without gathers. Here the block parks its 256 * k indices (and IDW
-//   weights) in shared memory and copies rows directly: one warp per output
-//   row, lanes over channels, so reads and writes are coalesced.
+// knn_group and knn_idw (the main path's two): query-split selection.
+// What bounds them on the H100: knn_group at level 0 (8192 x 8192, k = 16,
+// C = 99 float32) writes a 52 MB grouped tensor and reads 3 MB, against 50
+// MFLOP of distances: its bound is that write, 0.0168 ms at 3.35 TB/s.
+// knn_idw writes only [N, C]; what bounds it is the selection, N * wb key
+// compares and the top-k insertions, which the device-memory and FLOP
+// bounds do not count. With one thread per query and one block per
+// 256-query tile, both ran on the latency of one thread's serial walk over
+// 768 candidates (its top-k in a local-memory array) on at most 32 of the
+// 132 SMs, and the copy kept one 4-byte load in flight per lane. So:
+// - the CUDA block is decoupled from the band tile: a block of 256 threads
+//   takes Q = 256 / S queries of one tile and stages that tile's band
+//   (<= 1024 points, 12 KB) in shared memory itself; blocks of one tile
+//   re-read it from L2. The grid is (N / Q) x B, 512 blocks for knn_group
+//   at level 0 (S = 16; default_split chooses S from the query count);
+// - each query's band is split over S lanes: lane s scans positions
+//   p = s (mod S) and keeps its own K best keys in registers (K a
+//   compile-time capacity >= k, insertion by unrolled compare-and-swap, no
+//   dynamic index: no stack frame). k rounds of a group minimum
+//   (__reduce_min_sync for a warp, a shuffle butterfly below) merge the S
+//   lists: the lane whose head won pops it. Keys are distinct within a band
+//   (p < 1024 sits in the low bits), so the k smallest form a set, and the
+//   merge returns exactly the ascending list of a serial scan, however the
+//   band is split;
+// - the grouping is a flat copy: the block's Q * k output rows are one
+//   contiguous span, written in 16-byte vectors, each thread gathering 4
+//   (float32) or 8 (bf16) elements before its store;
+// - the IDW mix takes the block's Q output rows the same way, each thread's
+//   k gathers in flight before its slot-order sum. Every lane of a query sees
+//   the merged distances in slot order and sums the weights with the
+//   roundings above, so the output bits do not depend on S either.
+// knn and knn_group2 (entry points only) keep one thread per query and one
+// block per tile (band_topk, tile_topk), and one warp per grouped row.
 #include "banded_common.cuh"
 
 // k smallest packed keys of one query against the shared-memory band,
@@ -82,14 +96,14 @@ __device__ __forceinline__ void band_topk(float qx, float qy, float qz,
 }
 
 // Stage the band, run the top-k for this thread's query, write sqdist and
-// idx, and optionally park idx and the distances in shared memory. The
+// idx, and optionally park idx in shared memory. The
 // band rows come from b0 of this block's tile whatever the points array;
 // the caller __syncthreads() before reading `sidx` or restaging `band`.
 __device__ __forceinline__ void tile_topk(
     const float* __restrict__ query, const float* __restrict__ points,
     const int* __restrict__ b0, int N, int M, int k, int wblk, int n_blocks,
     int n_valid, float* __restrict__ out_d, int* __restrict__ out_i,
-    float* band, int* sidx, float* sd) {
+    float* band, int* sidx) {
   const int wb = wblk * n_blocks;
   const int b = blockIdx.y;
   const int n_tiles = N / QUERY_TILE;
@@ -111,7 +125,6 @@ __device__ __forceinline__ void tile_topk(
     out_d[o + j] = d;
     out_i[o + j] = base + pos;
     if (sidx != nullptr) sidx[threadIdx.x * k + j] = base + pos;
-    if (sd != nullptr) sd[threadIdx.x * k + j] = d;
   }
 }
 
@@ -122,7 +135,7 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
            int* __restrict__ out_i) {
   extern __shared__ float smem[];
   tile_topk(query, points, b0, N, M, k, wblk, n_blocks, n_valid, out_d, out_i,
-            smem, nullptr, nullptr);
+            smem, nullptr);
 }
 
 // copy the rows named by sidx[0 .. QUERY_TILE * k) of feats into this
@@ -146,22 +159,6 @@ __device__ __forceinline__ void tile_group(const T* __restrict__ feats,
 
 template <typename T>
 __global__ void __launch_bounds__(QUERY_TILE)
-knn_group_kernel(const float* __restrict__ query,
-                 const float* __restrict__ points, const T* __restrict__ feats,
-                 const int* __restrict__ b0, int N, int M, int C, int k,
-                 int wblk, int n_blocks, int n_valid, float* __restrict__ out_d,
-                 int* __restrict__ out_i, T* __restrict__ grouped) {
-  extern __shared__ float smem[];
-  float* band = smem;                                   // [wb * 3]
-  int* sidx = (int*)(band + 3 * wblk * n_blocks);       // [256 * k]
-  tile_topk(query, points, b0, N, M, k, wblk, n_blocks, n_valid, out_d, out_i,
-            band, sidx, nullptr);
-  __syncthreads();
-  tile_group(feats, sidx, N, M, C, k, grouped);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(QUERY_TILE)
 knn_group2_kernel(const float* __restrict__ query_a,
                   const float* __restrict__ query_b,
                   const float* __restrict__ points_a,
@@ -176,82 +173,263 @@ knn_group2_kernel(const float* __restrict__ query_a,
   int* sidx_a = (int*)(band + 3 * wblk * n_blocks);     // [256 * k]
   int* sidx_b = sidx_a + QUERY_TILE * k;                // [256 * k]
   tile_topk(query_a, points_a, b0, N, M, k, wblk, n_blocks, n_valid, d_a, i_a,
-            band, sidx_a, nullptr);
+            band, sidx_a);
   __syncthreads();  // every thread is done with points_a's band
   tile_topk(query_b, points_b, b0, N, M, k, wblk, n_blocks, n_valid, d_b, i_b,
-            band, sidx_b, nullptr);
+            band, sidx_b);
   __syncthreads();
   tile_group(feats, sidx_a, N, M, C, k, g_a);
   tile_group(feats, sidx_b, N, M, C, k, g_b);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(QUERY_TILE)
-knn_idw_kernel(const float* __restrict__ query,
-               const float* __restrict__ points, const T* __restrict__ feats,
-               const int* __restrict__ b0, int N, int M, int C, int k,
-               int wblk, int n_blocks, int n_valid, float eps2,
-               T* __restrict__ out, float* __restrict__ out_d,
-               int* __restrict__ out_i) {
-  extern __shared__ float smem[];
-  float* band = smem;                                   // [wb * 3]
-  int* sidx = (int*)(band + 3 * wblk * n_blocks);       // [256 * k]
-  float* sw = (float*)(sidx + QUERY_TILE * k);          // [256 * k]
-  tile_topk(query, points, b0, N, M, k, wblk, n_blocks, n_valid, out_d, out_i,
-            band, sidx, sw);
+// ---------------------------------------------------------------------------
+// knn_group and knn_idw: the query-split selection
+// ---------------------------------------------------------------------------
 
-  // normalised inverse-distance weights of this thread's query
-  float* w = sw + threadIdx.x * k;
-  float s = 0.0f;
-  for (int j = 0; j < k; ++j) {
-    const float dj = fmaxf(w[j], 0.0f);
-    w[j] = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(dj, eps2)));
-    s = __fadd_rn(s, w[j]);
+#define SPLIT_BLOCK 256  // threads of a knn_group / knn_idw block
+
+struct SplitArgs {
+  const float* query;   // [B, N, 3]
+  const float* points;  // [B, M, 3]
+  const void* feats;    // [B, M, C]
+  const int* b0;        // [B, N / 256]
+  int N, M, C, k, wblk, n_blocks, n_valid;
+  float eps2;           // knn_idw only
+  float* out_d;         // [B, N, k]
+  int* out_i;           // [B, N, k]
+  void* out;            // knn_group: grouped [B, N, k, C]; knn_idw: [B, N, C]
+};
+
+// the minimum of v over the S lanes of one query (S a power of two <= 32;
+// a query's lanes are consecutive and aligned in the warp)
+template <int S>
+__device__ __forceinline__ int group_min(int v) {
+  if constexpr (S == 32) {
+    return __reduce_min_sync(0xFFFFFFFFu, v);
+  } else {
+#pragma unroll
+    for (int o = S / 2; o > 0; o >>= 1)
+      v = min(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+    return v;
   }
-  for (int j = 0; j < k; ++j) w[j] = __fdiv_rn(w[j], s);
+}
+
+// Stage this block's band, then select the k smallest keys of each of its
+// Q = SPLIT_BLOCK / S queries, S lanes to a query. On return (after a
+// __syncthreads) sidx[q * k + j] and sd[q * k + j] hold query q's slot j
+// (absolute row, truncated distance), and every lane holds in `wsum` its
+// query's IDW weight sum (when IDW is set). Returns the block's base row.
+template <int K, int S, bool IDW>
+__device__ __forceinline__ int split_topk(const SplitArgs& a, float* band,
+                                          int* sidx, float* sd, float* sw) {
+  constexpr int Q = SPLIT_BLOCK / S;
+  const int wb = a.wblk * a.n_blocks, k = a.k;
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * Q;
+  const int base = a.b0[b * (a.N / QUERY_TILE) + n0 / QUERY_TILE] * a.wblk;
+  const float* pts = a.points + ((size_t)b * a.M + base) * 3;
+  for (int i = threadIdx.x; i < wb * 3; i += SPLIT_BLOCK) band[i] = pts[i];
   __syncthreads();
 
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const T* fb = feats + (size_t)b * M * C;
-  T* ob = out + ((size_t)b * N + (size_t)blockIdx.x * QUERY_TILE) * C;
-  for (int r = warp; r < QUERY_TILE; r += n_warps) {
-    const int* ri = sidx + r * k;
-    const float* rw = sw + r * k;
-    for (int c = lane; c < C; c += 32) {
-      float acc = 0.0f;
-      for (int j = 0; j < k; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(rw[j], to_f32(fb[(size_t)ri[j] * C + c])));
-      ob[(size_t)r * C + c] = from_f32<T>(acc);
+  const int ql = threadIdx.x / S, s = threadIdx.x % S;
+  const float* q = a.query + ((size_t)b * a.N + n0 + ql) * 3;
+  const float qx = q[0], qy = q[1], qz = q[2];
+  int keys[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) keys[j] = 0x7FFFFFFF;
+  for (int p = s; p < wb; p += S) {
+    const float dx = __fsub_rn(qx, band[3 * p + 0]);
+    const float dy = __fsub_rn(qy, band[3 * p + 1]);
+    const float dz = __fsub_rn(qz, band[3 * p + 2]);
+    float d = __fmul_rn(dy, dy);
+    d = __fmaf_rn(dx, dx, d);
+    d = __fmaf_rn(dz, dz, d);
+    if (base + p >= a.n_valid) d = BIG_DIST;
+    int key = (__float_as_int(d) & ~POS_MASK) | p;
+    if (key < keys[K - 1]) {
+      // sorted insertion: keep the smaller at each slot, carry the larger
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int lo = min(keys[j], key);
+        key = max(keys[j], key);
+        keys[j] = lo;
+      }
     }
   }
+
+  // merge: round r finds the query's r-th key; its lane pops it
+  int nearest = 0;
+  float wsum = 0.0f;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    if (r >= k) break;
+    const int m = group_min<S>(keys[0]);
+    if (r == 0) nearest = m & POS_MASK;
+    const float d = __int_as_float(m & ~POS_MASK);
+    if constexpr (IDW) wsum = __fadd_rn(wsum, __fdiv_rn(
+        1.0f, __fsqrt_rn(__fadd_rn(fmaxf(d, 0.0f), a.eps2))));
+    if (r % S == s) {
+      const int pos = d >= 0.5f * BIG_DIST ? nearest : (m & POS_MASK);
+      sidx[ql * k + r] = base + pos;
+      sd[ql * k + r] = d;
+    }
+    const bool won = keys[0] == m;
+#pragma unroll
+    for (int j = 0; j < K - 1; ++j) keys[j] = won ? keys[j + 1] : keys[j];
+    keys[K - 1] = won ? 0x7FFFFFFF : keys[K - 1];
+  }
+  if constexpr (IDW) {
+    // normalised weights of this lane's slots, as the serial kernel: each
+    // w_j again from d_j, over the slot-order sum
+    for (int r = s; r < k; r += S) {
+      const float w = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(
+          fmaxf(sd[ql * k + r], 0.0f), a.eps2)));
+      sw[ql * k + r] = __fdiv_rn(w, wsum);
+    }
+  }
+  __syncthreads();
+
+  // the block's Q * k distances and indices are one contiguous span
+  const size_t o = ((size_t)b * a.N + n0) * k;
+  for (int e = threadIdx.x; e < Q * k; e += SPLIT_BLOCK) {
+    a.out_d[o + e] = sd[e];
+    a.out_i[o + e] = sidx[e];
+  }
+  return n0;
+}
+
+// E: the element's bits (uint32_t for float32, uint16_t for bf16): the
+// grouping is an exact copy
+template <int K, int S, typename E>
+__global__ void __launch_bounds__(SPLIT_BLOCK)
+knn_group_kernel(const SplitArgs a) {
+  constexpr int Q = SPLIT_BLOCK / S;
+  constexpr int VEC = 16 / sizeof(E);
+  extern __shared__ float smem[];
+  const int k = a.k, C = a.C;
+  float* band = smem;                                   // [wb * 3]
+  int* sidx = (int*)(band + 3 * a.wblk * a.n_blocks);   // [Q * k]
+  float* sd = (float*)(sidx + Q * k);                   // [Q * k]
+  const int n0 = split_topk<K, S, false>(a, band, sidx, sd, nullptr);
+
+  const int b = blockIdx.y;
+  const E* fb = (const E*)a.feats + (size_t)b * a.M * C;
+  E* gb = (E*)a.out + ((size_t)b * a.N + n0) * k * C;
+  const int n_el = Q * k * C;
+  if ((reinterpret_cast<uintptr_t>(gb) & 15) == 0 && n_el % VEC == 0) {
+#pragma unroll 2
+    for (int v = threadIdx.x; v < n_el / VEC; v += SPLIT_BLOCK) {
+      int row = v * VEC / C, c = v * VEC - row * C;
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const uint32_t x = fb[(size_t)sidx[row] * C + c];
+        if constexpr (sizeof(E) == 4) w[i] = x;
+        else w[i >> 1] |= x << (16 * (i & 1));
+        if (++c == C) {
+          c = 0;
+          ++row;
+        }
+      }
+      reinterpret_cast<uint4*>(gb)[v] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n_el; e += SPLIT_BLOCK) {
+      const int row = e / C;
+      gb[e] = fb[(size_t)sidx[row] * C + (e - row * C)];
+    }
+  }
+}
+
+template <int K, int S, typename T>
+__global__ void __launch_bounds__(SPLIT_BLOCK)
+knn_idw_kernel(const SplitArgs a) {
+  constexpr int Q = SPLIT_BLOCK / S;
+  extern __shared__ float smem[];
+  const int k = a.k, C = a.C;
+  float* band = smem;                                   // [wb * 3]
+  int* sidx = (int*)(band + 3 * a.wblk * a.n_blocks);   // [Q * k]
+  float* sd = (float*)(sidx + Q * k);                   // [Q * k]
+  float* sw = sd + Q * k;                               // [Q * k]
+  const int n0 = split_topk<K, S, true>(a, band, sidx, sd, sw);
+
+  // output elements of the block's Q rows, one contiguous span
+  const int b = blockIdx.y;
+  const T* fb = (const T*)a.feats + (size_t)b * a.M * C;
+  T* ob = (T*)a.out + ((size_t)b * a.N + n0) * C;
+  for (int e = threadIdx.x; e < Q * C; e += SPLIT_BLOCK) {
+    const int row = e / C, c = e - row * C;
+    const int* ri = sidx + row * k;
+    const float* rw = sw + row * k;
+    float f[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (j < k) f[j] = to_f32(fb[(size_t)ri[j] * C + c]);
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (j < k) acc = __fadd_rn(acc, __fmul_rn(rw[j], f[j]));
+    ob[e] = from_f32<T>(acc);
+  }
+}
+
+// The fewest lanes per query (of 8, 16, 32) that still give the launch
+// 4,096 warps (knn_group) or 2,048 (knn_idw, whose merge rounds each
+// compute a weight in every lane): fewer lanes mean shorter merges, more
+// lanes more parallel work where the queries are few. Measured on the
+// H100 at the main path's shapes: 32 at 2,048 queries or fewer, 16
+// (knn_group) or 8 (knn_idw) at 8,192, 8 at 4 x 8,192. A measurement build
+// fixes S for every launch with -DSSF_KNN_SPLIT=8, 16 or 32; the outputs do
+// not depend on it.
+static int default_split(long queries, bool idw) {
+  const long lanes = idw ? 65536 : 131072;
+  for (int s = 8; s < 32; s *= 2)
+    if (queries * s >= lanes) return s;
+  return 32;
+}
+
+template <int K, int S, typename E, bool IDW>
+static int launch_split_ks(const SplitArgs& a, int B, cudaStream_t stream) {
+  constexpr int Q = SPLIT_BLOCK / S;
+  const size_t smem = sizeof(float) * 3 * a.wblk * a.n_blocks +
+                      sizeof(int) * Q * a.k * (IDW ? 3 : 2);
+  dim3 grid(a.N / Q, B);
+  if constexpr (IDW)
+    knn_idw_kernel<K, S, E><<<grid, SPLIT_BLOCK, smem, stream>>>(a);
+  else
+    knn_group_kernel<K, S, E><<<grid, SPLIT_BLOCK, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int K, typename E, bool IDW>
+static int launch_split_k(const SplitArgs& a, int B, cudaStream_t stream) {
+#ifdef SSF_KNN_SPLIT
+  return launch_split_ks<K, SSF_KNN_SPLIT, E, IDW>(a, B, stream);
+#else
+  switch (default_split((long)B * a.N, IDW)) {
+    case 8: return launch_split_ks<K, 8, E, IDW>(a, B, stream);
+    case 16: return launch_split_ks<K, 16, E, IDW>(a, B, stream);
+    default: return launch_split_ks<K, 32, E, IDW>(a, B, stream);
+  }
+#endif
+}
+
+// the smallest compiled capacity K >= k: 3, 5, 7 (the main path's IDW),
+// 8, 16 (its groupings) or 32 (MAX_K)
+template <typename E, bool IDW>
+static int launch_split(const SplitArgs& a, int B, cudaStream_t stream) {
+  if (a.k <= 3) return launch_split_k<3, E, IDW>(a, B, stream);
+  if (a.k <= 5) return launch_split_k<5, E, IDW>(a, B, stream);
+  if (a.k <= 7) return launch_split_k<7, E, IDW>(a, B, stream);
+  if (a.k <= 8) return launch_split_k<8, E, IDW>(a, B, stream);
+  if (a.k <= 16) return launch_split_k<16, E, IDW>(a, B, stream);
+  return launch_split_k<32, E, IDW>(a, B, stream);
 }
 
 static int check_shape(int N, int k, int wblk, int n_blocks) {
   if (N % QUERY_TILE != 0 || k < 1 || k > MAX_K || wblk * n_blocks > 1024)
     return (int)cudaErrorInvalidValue;
   return 0;
-}
-
-template <typename T>
-static int launch_group(const void* query, const void* points,
-                        const void* feats, const void* b0, int B, int N, int M,
-                        int C, int k, int wblk, int n_blocks, int n_valid,
-                        void* out_d, void* out_i, void* grouped,
-                        cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * 3 * wblk * n_blocks + sizeof(int) * QUERY_TILE * k;
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_group_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(N / QUERY_TILE, B);
-  knn_group_kernel<T><<<grid, QUERY_TILE, smem, stream>>>(
-      (const float*)query, (const float*)points, (const T*)feats,
-      (const int*)b0, N, M, C, k, wblk, n_blocks, n_valid, (float*)out_d,
-      (int*)out_i, (T*)grouped);
-  return (int)cudaGetLastError();
 }
 
 static int launch_knn(const void* query, const void* points, const void* b0,
@@ -287,26 +465,6 @@ static int launch_group2(const void* qa, const void* qb, const void* pa,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_idw(const void* query, const void* points, const void* feats,
-                      const void* b0, int B, int N, int M, int C, int k,
-                      int wblk, int n_blocks, int n_valid, float eps2,
-                      void* out, void* out_d, void* out_i,
-                      cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 3 * wblk * n_blocks +
-                      (sizeof(int) + sizeof(float)) * QUERY_TILE * k;
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_idw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(N / QUERY_TILE, B);
-  knn_idw_kernel<T><<<grid, QUERY_TILE, smem, stream>>>(
-      (const float*)query, (const float*)points, (const T*)feats,
-      (const int*)b0, N, M, C, k, wblk, n_blocks, n_valid, eps2, (T*)out,
-      (float*)out_d, (int*)out_i);
-  return (int)cudaGetLastError();
-}
-
 extern "C" {
 
 // query [B, N, 3] f32, points [B, M, 3] f32, feats [B, M, C] (f32 or bf16),
@@ -318,13 +476,12 @@ int ssf_knn_group(const void* query, const void* points, const void* feats,
                   void* out_i, void* grouped, void* stream) {
   int bad = check_shape(N, k, wblk, n_blocks);
   if (bad) return bad;
+  const SplitArgs a{(const float*)query, (const float*)points, feats,
+                    (const int*)b0, N, M, C, k, wblk, n_blocks, n_valid, 0.0f,
+                    (float*)out_d, (int*)out_i, grouped};
   if (feats_bf16)
-    return launch_group<__nv_bfloat16>(query, points, feats, b0, B, N, M, C, k,
-                                       wblk, n_blocks, n_valid, out_d, out_i,
-                                       grouped, (cudaStream_t)stream);
-  return launch_group<float>(query, points, feats, b0, B, N, M, C, k, wblk,
-                             n_blocks, n_valid, out_d, out_i, grouped,
-                             (cudaStream_t)stream);
+    return launch_split<uint16_t, false>(a, B, (cudaStream_t)stream);
+  return launch_split<uint32_t, false>(a, B, (cudaStream_t)stream);
 }
 
 // query [B, N, 3] f32, points [B, M, 3] f32, b0 [B, N / 256] i32
@@ -368,13 +525,12 @@ int ssf_knn_idw(const void* query, const void* points, const void* feats,
                 void* out, void* out_d, void* out_i, void* stream) {
   int bad = check_shape(N, k, wblk, n_blocks);
   if (bad) return bad;
+  const SplitArgs a{(const float*)query, (const float*)points, feats,
+                    (const int*)b0, N, M, C, k, wblk, n_blocks, n_valid, eps2,
+                    (float*)out_d, (int*)out_i, out};
   if (feats_bf16)
-    return launch_idw<__nv_bfloat16>(query, points, feats, b0, B, N, M, C, k,
-                                     wblk, n_blocks, n_valid, eps2, out, out_d,
-                                     out_i, (cudaStream_t)stream);
-  return launch_idw<float>(query, points, feats, b0, B, N, M, C, k, wblk,
-                           n_blocks, n_valid, eps2, out, out_d, out_i,
-                           (cudaStream_t)stream);
+    return launch_split<__nv_bfloat16, true>(a, B, (cudaStream_t)stream);
+  return launch_split<float, true>(a, B, (cudaStream_t)stream);
 }
 
 const char* ssf_error_string(int code) {

@@ -6,11 +6,14 @@ and loaded through ``ctypes`` — no PyTorch headers, so a build takes
 seconds. The library name carries a hash of the sources, so an edited
 source is rebuilt and a stale library is never loaded. Nothing is built
 when the module is imported: the first kernel launch (or ``build_all``)
-does it.
+does it. A measurement build of a library with ``-D`` macros
+(``build_all(variants=...)``, ``variant``) sits beside the library under
+its own hash.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -55,10 +58,14 @@ SIGNATURES = {
     },
 }
 
+# -Xptxas -v: each kernel's registers, stack frame and spills, kept beside
+# the library (ptxas_report)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
+# library name -> the -D macros of the build that call() launches
+_variants: dict[str, tuple[str, ...]] = {}
 
 
 def nvcc() -> str:
@@ -69,66 +76,92 @@ def nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _lib_path(name: str, defines: tuple[str, ...] = ()) -> str:
     h = hashlib.sha256()
     for f in (SOURCES[name], "banded_common.cuh"):
         with open(os.path.join(SRC_DIR, f), "rb") as fh:
             h.update(fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def build_all(verbose: bool = False) -> dict[str, str]:
-    """Compile every library that is not built yet, all nvcc processes
-    started together. Returns {name: ptxas report} (empty unless verbose,
-    which adds ``-Xptxas -v``: registers, shared memory and spills)."""
+def ptxas_report(name: str, defines: tuple[str, ...] = ()) -> str:
+    """nvcc's ``-Xptxas -v`` report of the built library ``name`` (its
+    build with the -D macros ``defines``)."""
+    with open(_lib_path(name, defines)[:-3] + ".ptxas.txt") as f:
+        return f.read()
+
+
+def build_all(variants: tuple[tuple[str, tuple[str, ...]], ...] = ()) -> None:
+    """Compile every library, and every (name, -D macros) build of
+    ``variants``, that is not built yet, all nvcc processes started
+    together."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name, src in SOURCES.items():
-        out = _lib_path(name)
+    procs = []
+    for name, defines in [(name, ()) for name in SOURCES] + list(variants):
+        out = _lib_path(name, defines)
         if os.path.exists(out):
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, os.path.join(SRC_DIR, src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
+        cmd = [nvcc(), *_flags(defines), "-o", tmp,
+               os.path.join(SRC_DIR, SOURCES[name])]
+        procs.append((name, defines, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, out))
+    failed = []
+    for name, defines, proc, tmp, out in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            failed.append(f"{name} {defines}: nvcc exit {proc.returncode}\n"
+                          f"{log}")
             os.unlink(tmp)
             continue
+        with open(out[:-3] + ".ptxas.txt", "w") as f:
+            f.write(log)
         os.replace(tmp, out)
-        reports[name] = log
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
-    return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library ``name`` (its build with the -D macros
+    ``defines``), built first if needed."""
+    lib = _loaded.get((name, defines))
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(name, defines)
         if not os.path.exists(path):
-            build_all()
+            build_all(variants=((name, defines),))
         lib = ctypes.CDLL(path)
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.ssf_error_string.argtypes = [ctypes.c_int]
         lib.ssf_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        _loaded[(name, defines)] = lib
     return lib
+
+
+@contextlib.contextmanager
+def variant(name: str, defines: tuple[str, ...]):
+    """Within the block, every launch of library ``name`` goes to its build
+    with the -D macros ``defines`` (a measurement build); after it, to the
+    library again."""
+    load(name, defines)
+    _variants[name] = defines
+    try:
+        yield
+    finally:
+        del _variants[name]
 
 
 def call(name: str, fn: str, *args) -> None:
     """Launch ``fn`` of library ``name``; raise on a nonzero CUDA error."""
-    lib = load(name)
+    lib = load(name, _variants.get(name, ()))
     code = getattr(lib, fn)(*args)
     if code != 0:
         msg = lib.ssf_error_string(code).decode()

@@ -7,10 +7,20 @@ without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Inputs: Morton-sorted lidar-like clouds (B=2, N=1024, M=2048, C=16) from a
-numpy seed. Tolerances: sqdist, idx, grouped (knn_group and knn_group2's
-twin searches), knn's and regroup EXACT; knn_idw
-(float32) 1e-5 relative + 1e-6 absolute (the same float32 operations, so
-in practice equal); scatter_softmax_sum and scatter_add 1e-5 relative +
+numpy seed. knn_group and knn_idw (the query-split kernels) run over 1,024
+and 8,192 queries at batch 1 and 4, so that the split the library picks
+by query count takes each of its values (knn_group 32, 32, 16, 8 lanes per
+query; knn_idw 32, 16, 8, 8), over every k in SPLIT_K, a 768- and a
+384-row band (M = 2048 and 512), three clouds (lidar-like; padded rows
+past n_valid, whose 1e10 keys differ only by position; duplicated points,
+whose equal distances break ties by position) and float32 and bf16 feats
+of C = 35, 99, 131 and 132; chip_smoke.py holds each S at the main path's
+shapes through measurement builds that fix it.
+Tolerances: sqdist, idx, grouped (knn_group and knn_group2's
+twin searches), knn's and regroup EXACT; knn_idw's output float32 1e-5
+relative + 1e-6 absolute (the same float32 operations, so in practice
+equal), bf16 within one bf16 rounding step (2^-8 relative + 1e-6), as
+chip_smoke.py holds it; scatter_softmax_sum and scatter_add 1e-5 relative +
 1e-6 absolute, for the float32 atomics' run-to-run order (so is the
 grouping backward through scatter_add against its plain version);
 attention ([2, 512, 16, 64]): float32 within 1e-5, bf16 within one bf16
@@ -25,6 +35,8 @@ from run to run).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import pytest
@@ -61,28 +73,90 @@ def case():
                 plan=nb.make_plan(q, p, PARAMS, 64.0, box))
 
 
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(n, bsz, params, cloud):
+    """(query [bsz, n, 3], points [bsz, M, 3], plan) on the card: M = 2048
+    for a 768-row band, 512 for a 384-row one (su1's 2048 <- 512)."""
+    rng = np.random.default_rng(5)
+    m = 2048 if params[1] == 256 else 512
+    q0 = np.stack([_lidar_cloud(rng, n) for _ in range(bsz)])
+    p0 = np.stack([_lidar_cloud(rng, m) for _ in range(bsz)])
+    if cloud == "duplicated":  # each target four times, queries on them
+        p0 = np.repeat(p0[:, :m // 4], 4, axis=1)
+        q0 = p0[:, rng.integers(0, m, n)]
+    q0, p0 = torch.from_numpy(q0).cuda(), torch.from_numpy(p0).cuda()
+    box = nb.cloud_box(q0, p0)
+    q, _ = nb.morton_sort(q0, box=box)
+    p, _ = nb.morton_sort(p0, box=box)
+    plan = nb.make_plan(q, p, params, 64.0, box)
+    if cloud == "padded":  # rows past n_valid; one band of 5 valid rows
+        plan = (plan[0], int(plan[0][0].max()) * params[1] + 5)
+    return q, p, plan
+
+
+def _split_feats(bsz, m, dtype, c):
+    f = np.random.default_rng(c).normal(size=(bsz, m, c)).astype(np.float32)
+    return torch.from_numpy(f).cuda().to(getattr(torch, dtype))
+
+
+SPLIT_K = [1, 3, 5, 7, 16, 32]
+SPLIT_N = [1024, 8192]
+SPLIT_PARAMS = [(256, 256, 3), (256, 128, 3)]
+SPLIT_CLOUDS = ["lidar", "padded", "duplicated"]
+SPLIT_FEATS = [(dtype, c) for c in (35, 99, 131, 132)
+               for dtype in ("float32", "bfloat16")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_knn_group_matches_plain(case, dtype):
-    c = case
-    f = c["feats"].to(getattr(torch, dtype))
+@pytest.mark.parametrize("feats", SPLIT_FEATS)
+@pytest.mark.parametrize("cloud", SPLIT_CLOUDS)
+@pytest.mark.parametrize("bsz", [1, 4])
+@pytest.mark.parametrize("n", SPLIT_N)
+@pytest.mark.parametrize("params", SPLIT_PARAMS)
+@pytest.mark.parametrize("k", SPLIT_K)
+def test_cuda_knn_group_matches_plain(cuda_dev, k, params, n, bsz, cloud,
+                                      feats):
+    q, p, plan = _split_case(n, bsz, params, cloud)
+    f = _split_feats(bsz, p.shape[1], *feats)
+    want = banded.knn_group_plain(q, p, f, k, plan, params)
     before = banded.LAUNCHES["knn_group"]
-    got = banded.knn_group(c["q"], c["p"], f, 16, c["plan"], PARAMS)
+    got = banded.knn_group(q, p, f, k, plan, params)
     assert banded.LAUNCHES["knn_group"] == before + 1
-    want = banded.knn_group_plain(c["q"], c["p"], f, 16, c["plan"], PARAMS)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    if cloud == "padded" and k > 5:  # slots past the band's 5 valid rows
+        assert bool((want[0] >= 5e9).any())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [3, 7])
-def test_cuda_knn_idw_matches_plain(case, k):
-    c = case
-    got = banded.knn_idw(c["q"], c["p"], c["feats"], k, c["plan"], PARAMS)
-    want = banded.knn_idw_plain(c["q"], c["p"], c["feats"], k, c["plan"],
-                                PARAMS)
+@pytest.mark.parametrize("feats", SPLIT_FEATS)
+@pytest.mark.parametrize("cloud", SPLIT_CLOUDS)
+@pytest.mark.parametrize("bsz", [1, 4])
+@pytest.mark.parametrize("n", SPLIT_N)
+@pytest.mark.parametrize("params", SPLIT_PARAMS)
+@pytest.mark.parametrize("k", SPLIT_K)
+def test_cuda_knn_idw_matches_plain(cuda_dev, k, params, n, bsz, cloud,
+                                    feats):
+    q, p, plan = _split_case(n, bsz, params, cloud)
+    f = _split_feats(bsz, p.shape[1], *feats)
+    want = banded.knn_idw_plain(q, p, f, k, plan, params)
+    before = banded.LAUNCHES["knn_idw"]
+    got = banded.knn_idw(q, p, f, k, plan, params)
+    assert banded.LAUNCHES["knn_idw"] == before + 1
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    assert got[0].dtype == f.dtype
+    if feats[0] == "float32":
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    else:  # one bf16 rounding step, as chip_smoke.py holds it
+        err = (got[0].float() - want[0].float()).abs()
+        assert bool((err <= 1e-6 + 2.0 ** -8 * want[0].float().abs()).all())
 
 
 @pytest.mark.cuda
