@@ -10,9 +10,10 @@ printing its own line and failing loudly:
 1. build: compile every CUDA source of the port with nvcc (all at once,
    beside three measurement builds of band_knn.cu with the split S fixed at
    8, 16 and 32), check in nvcc's -Xptxas -v report (kept beside each
-   library) that every knn_group / knn_idw instance has a 0-byte stack
-   frame and no spills (printing the shipped library's lines) and print the
-   card's name and power limit;
+   library) that every knn_group / knn_idw, bf16 cost_attention and
+   scatter_add instance has a 0-byte stack frame and no spills (printing
+   the shipped libraries' lines) and print the card's name and power
+   limit;
 2. kernels: each of the nine kernels at its largest main-path shape, on
    Morton-sorted clouds of the bench sequence (the cost attention on the
    level-0 cost volume's own inputs, with the folded weightnet of the
@@ -32,7 +33,10 @@ printing its own line and failing loudly:
    above; float32 to 1e-5 relative) with the split S (lanes per query) the
    shipped library picks and with each measurement build's; timed as above
    and, to compare the splits, alone (queued behind a device-side sleep, so
-   that no host work is timed) with each;
+   that no host work is timed) with each. cost_attention at both launches
+   of a scan (8192 and 2048 points) and scatter_add at the level-0 shape,
+   batch 1 and 4, float32 and bf16 values, are timed alone too, the latter
+   with its device-memory atomics against one an entry and channel;
 3. f32: the committed weights over the first 8 bench frames through the
    whole SSF step against the JAX reference fixtures
    (tests/fixtures/torch_port/ssf_fused_ref.npz, ssf_slam_ref.npz):
@@ -46,7 +50,8 @@ printing its own line and failing loudly:
    the map pose (pose_t) and of the odometry (odom_t) against the
    generator's ground-truth poses;
 5. the main path with fuse_attention on: the same 32 frames and checks,
-   with two cost_attention launches per scan;
+   with two cost_attention launches per scan, and cost_attention's time a
+   scan alone (phase 2) beside its bound;
 6. entry: the neighbour engine's and the attention module's remaining
    entry points (nn_knn, nn_knn_group2 and attention_fused, the last two
    with their gradients) at the level-0 shapes, counters reset just before
@@ -60,6 +65,8 @@ printing its own line and failing loudly:
    samples/s, peak memory), one eval pass (EPE, mIoU); the loss on one
    fixed batch falling over 8 steps at TRAIN_LR; the first step's f32
    gradients with the backward's scatter_add against its plain version;
+   scatter_add at every shape of the bf16 and the f32 step's segment sums,
+   against its plain version and timed alone beside its bound;
    and the f32 train step against the JAX fixture
    tests/fixtures/torch_port/ssf_train_ref.npz (loss 1e-4 relative, each
    leaf's gradient norm 1e-3 relative, the new batch statistics 1e-4).
@@ -67,9 +74,10 @@ printing its own line and failing loudly:
 With ``--profile DIR`` it then runs phases 5 and 4 three times more in
 turns (so that each setting runs first as often as the other) and prints
 their scans/s side by side, traces 8 scans of each main path with
-torch.profiler, writes device time by kernel to DIR/profile_<name>.txt and
-counts the host syncs per scan by the port's source lines; phase 7 then
-also traces two train steps (DIR/profile_train.txt). With ``--serve NPZ``
+torch.profiler, writes device time by kernel to DIR/profile_<name>.txt,
+prints the two settings' device time per scan side by side and counts the
+host syncs per scan by the port's source lines; phase 7 then also traces
+two train steps (DIR/profile_train.txt). With ``--serve NPZ``
 it only builds and runs phase 4 with the weights of NPZ (a ``best.npz`` of
 ``python -m ssf_slam_tpu_torch.train.train_ssf``).
 
@@ -251,6 +259,13 @@ def bound(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def scatter_bound(b, n, k, c, esize, n_out) -> tuple[float, str]:
+    """scatter_add's bound: idx and the values read once, the float32
+    output written once; one add per value."""
+    return bound(b * (n * k * 4 + n * k * c * esize + n_out * c * 4),
+                 b * n * k * c)
+
+
 def group_bound(b, n, m, k, c, esize, wb) -> tuple[float, str]:
     """knn_group's bound: clouds, feats, sqdist + idx and the grouped rows
     moved once; 8 operations per band candidate."""
@@ -275,20 +290,32 @@ def idw_bound(b, n, m, k, c, esize, wb) -> tuple[float, str]:
 SPLITS = (8, 16, 32)
 SPLIT_BUILDS = tuple(("ssf_band_knn", (f"SSF_KNN_SPLIT={s}",))
                      for s in SPLITS)
+# a measurement build of cost_attention.cu without the recheck of the sums
+# near a bf16 rounding boundary, to time what the recheck costs
+RECHECK_BUILD = ("ssf_cost_attention", ("SSF_CA_NO_RECHECK",))
+MEASUREMENT_BUILDS = SPLIT_BUILDS + (RECHECK_BUILD,)
 NO_FRAME = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+# the kernels held to NO_FRAME in each library's report, and how many
+# instances each library has: knn_group / knn_idw (K 3, 5, 7, 8, 16, 32 x
+# two element types x two kernels, and x S 8, 16, 32 in the shipped
+# library), the bf16 cost attention ((KP 16 x CP 32, 64, 128) and (KP 32
+# x CP 128), x C2P 16, 32, 64, 128) and the scatter-add (two element types)
+FRAME_CHECKS = {"ssf_band_knn": (("knn_group_kernel", "knn_idw_kernel"), 72),
+                "ssf_cost_attention": (("cost_attention_kernel",), 16),
+                "ssf_band_scatter": (("scatter_add_kernel",), 2)}
 
 
-def check_frames(label: str, log: str) -> list[str]:
-    """Checks that every knn_group_kernel / knn_idw_kernel entry of an
-    ``nvcc -Xptxas -v`` report has a 0-byte stack frame and no spills;
-    returns the entries' lines."""
+def check_frames(label: str, log: str, kernels) -> list[str]:
+    """Checks that every entry of the named kernels in an ``nvcc -Xptxas
+    -v`` report has a 0-byte stack frame and no spills; returns the
+    entries' lines."""
     lines, out = log.splitlines(), []
     for i, line in enumerate(lines):
         m = re.search(r"Function properties for (\S+)", line)
-        if m and ("knn_group_kernel" in m.group(1)
-                  or "knn_idw_kernel" in m.group(1)):
+        if m and any(k in m.group(1) for k in kernels):
             frame = lines[i + 1].strip() if i + 1 < len(lines) else ""
-            check(frame == NO_FRAME, "build", f"{label}: {m.group(1)}: {frame}")
+            check(frame == NO_FRAME, "build",
+                  f"{label}: {m.group(1)}: {frame}")
             out.append(f"{m.group(1)}: {frame}")
     return out
 
@@ -297,23 +324,32 @@ def phase_build() -> str:
     from ssf_slam_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build_all(variants=SPLIT_BUILDS)
-    for name, defines in [("ssf_band_knn", ())] + list(SPLIT_BUILDS):
+    cuda_build.build_all(variants=MEASUREMENT_BUILDS)
+    for name, defines in [(n, ()) for n in FRAME_CHECKS] + list(SPLIT_BUILDS):
+        kernels, count = FRAME_CHECKS[name]
         entries = check_frames(name + "".join(f" -D{d}" for d in defines),
-                               cuda_build.ptxas_report(name, defines))
-        # K 3, 5, 7, 8, 16, 32 x two element types x two kernels, and x S
-        # 8, 16, 32 in the shipped library
-        check(len(entries) == (24 if defines else 72), "build",
-              f"{name} {defines}: {len(entries)} knn_group / knn_idw entries")
+                               cuda_build.ptxas_report(name, defines),
+                               kernels)
+        want = count // 3 if defines else count  # one S a measurement build
+        check(len(entries) == want, "build", f"{name} {defines}: "
+              f"{len(entries)} {' / '.join(kernels)} entries, not {want}")
         if not defines:
             for line in entries:
                 say("build", f"{name}: {line}")
         else:
-            say("build", f"{name} -D{defines[0]}: {len(entries)} knn_group "
-                f"/ knn_idw entries, each {NO_FRAME}")
+            say("build", f"{name} -D{defines[0]}: {len(entries)} "
+                f"{' / '.join(kernels)} entries, each {NO_FRAME}")
+    # the build without the recheck is timed only, not held to NO_FRAME
+    report = cuda_build.ptxas_report(*RECHECK_BUILD).splitlines()
+    for i, line in enumerate(report):
+        if "cost_attention_kernelILi16ELi64ELi32E" in line \
+                and "Function properties" in line:
+            say("build", f"{RECHECK_BUILD[0]} -D{RECHECK_BUILD[1][0]} "
+                f"(timed only), the main path's instance <16, 64, 32>: "
+                f"{report[i + 1].strip()}; {report[i + 2].strip()}")
     for name in cuda_build.SOURCES:
         cuda_build.load(name)
-    for name, defines in SPLIT_BUILDS:
+    for name, defines in MEASUREMENT_BUILDS:
         cuda_build.load(name, defines)
     say("build", f"{len(cuda_build.SOURCES)} libraries ready in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -339,7 +375,7 @@ def bench_frames(n: int = N_FRAMES):
 
 def phase_kernels(frames, dev) -> dict:
     """Returns {name: kernel record without launches}."""
-    from ssf_slam_tpu_torch.ops import banded
+    from ssf_slam_tpu_torch.ops import attention, banded, cuda_build
     from ssf_slam_tpu_torch.ops import neighbors as nb
 
     pc1, pc2, box = sorted_pair(frames, dev)
@@ -399,7 +435,7 @@ def phase_kernels(frames, dev) -> dict:
     # scatter_softmax_sum and regroup: level-0 cost volume, N = 8192,
     # K = 16, C = 64 bf16, under the knn_group plan above
     k, c = 16, 64
-    vals = randn(1, N_POINTS, k, c, dtype=torch.bfloat16)
+    vals = vals_ss = randn(1, N_POINTS, k, c, dtype=torch.bfloat16)
     w = randn(1, N_POINTS, k)
     w_shift = (w - w.max()).contiguous()
     got = banded.scatter_softmax_sum(idx_l0, vals, w_shift, plan_l0,
@@ -457,7 +493,7 @@ def phase_kernels(frames, dev) -> dict:
     c = 99
     qb = (pc1 + 0.05 * randn(1, N_POINTS, 3)).contiguous()
     pb = (pc2 + 0.05 * randn(1, N_POINTS, 3)).contiguous()
-    feats = randn(1, N_POINTS, c)
+    feats = feats2 = randn(1, N_POINTS, c)
     got = banded.knn_group2(pc1, qb, pc2, pb, feats, k, plan_l0, params_l0)
     want = banded.knn_group2_plain(pc1, qb, pc2, pb, feats, k, plan_l0,
                                    params_l0)
@@ -492,16 +528,55 @@ def phase_kernels(frames, dev) -> dict:
         plain_ms=cuda_ms(lambda: banded.scatter_add_plain(
             idx_l0, vals, plan_l0, params_l0, N_POINTS)),
         library_ms=cuda_ms(lambda: acc.index_add_(0, flat_idx, flat_vals)),
-        bound=bound(n * k * 4 + n * k * c * f32 + N_POINTS * c * f32,
-                    n * k * c))
+        bound=scatter_bound(1, n, k, c, f32, N_POINTS))
 
-    inputs = cost_attention_inputs(frames, dev)
-    out["cost_attention"] = kernel_cost_attention(*inputs)
+    out["scatter_add"]["alone"] = queued_ms(lambda: banded.scatter_add(
+        idx_l0, vals, plan_l0, params_l0, N_POINTS))
+    # the other kernels alone too (for rows 3-9 of PERF.md's kernel table)
+    out["scatter_softmax_sum"]["alone"] = queued_ms(
+        lambda: banded.scatter_softmax_sum(idx_l0, vals_ss, w_shift, plan_l0,
+                                           params_l0, N_POINTS))
+    out["regroup"]["alone"] = queued_ms(
+        lambda: banded.regroup(idx_l0, cost, plan_l0, params_l0))
+    out["knn"]["alone"] = queued_ms(
+        lambda: banded.knn(pc1, pc2, 16, plan_l0, params_l0))
+    out["knn_group2"]["alone"] = queued_ms(
+        lambda: banded.knn_group2(pc1, qb, pc2, pb, feats2, 16, plan_l0,
+                                  params_l0))
+
+    # cost_attention at both launches of a scan: the record is level 0's,
+    # with the scan's sum of the two beside it
+    levels = cost_attention_levels(frames, dev)
+    per_level = {n: kernel_cost_attention(*args)
+                 for n, args in sorted(levels.items(), reverse=True)}
+    out["cost_attention"] = per_level[N_POINTS]
+    out["cost_attention"]["per_scan"] = dict(
+        alone=sum(r["alone"] for r in per_level.values()),
+        bound=sum(r["bound"][0] for r in per_level.values()))
+    for n, r in per_level.items():
+        say("kernels", f"cost_attention {r['shape']}: kernel {r['ms']:.4f} "
+            f"ms, alone {r['alone']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), share alone "
+            f"{r['bound'][0] / r['alone']:.3f}")
+    inputs = levels[N_POINTS]
+    # what the recheck costs: level 0 alone without it (measurement build),
+    # and how far the kernel then lies from its plain version
+    with cuda_build.variant(*RECHECK_BUILD):
+        got = attention.cost_attention_fused(*inputs)
+        bare = queued_ms(lambda: attention.cost_attention_fused(*inputs))
+    _, _, agreement = cost_attention_agreement(
+        got, attention.cost_attention_plain(*inputs))
+    say("kernels", f"cost_attention N={N_POINTS} without the recheck "
+        f"(-D{RECHECK_BUILD[1][0]}): alone {bare:.4f} ms against "
+        f"{per_level[N_POINTS]['alone']:.4f} ms shipped; agreement "
+        f"{agreement}")
     out["attention"] = kernel_attention(inputs[0], inputs[1])
     for name, r in out.items():
-        say("kernels", f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]}), max_abs_err {r['max_abs_err']:.3g}")
+        alone = f", alone {r['alone']:.4f} ms" if "alone" in r else ""
+        say("kernels", f"{name} {r['shape']}: kernel {r['ms']:.4f} ms"
+            f"{alone}, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max_abs_err "
+            f"{r['max_abs_err']:.3g}")
     return out
 
 
@@ -612,12 +687,117 @@ def time_split(name: str, args, tag: str, cold: bool = False) -> None:
         f"({bound_by}), share {bound_ms / ms:.3f}")
 
 
+def scatter_atomics(idx, plan, params, n_out) -> tuple[int, int]:
+    """(band rows reached, kept entries): the scatter-add kernel's
+    device-memory atomics per channel, one for each (query tile, band row
+    its entries reach) at one part a tile, against one for each kept
+    entry (one warp per entry, atomics straight into device memory)."""
+    from ssf_slam_tpu_torch.ops import banded
+
+    bsz, n, k = idx.shape
+    keep = banded._in_band(idx, plan[0], params) & (idx < n_out)
+    tile = (torch.arange(bsz * n, device=idx.device).view(bsz, n, 1)
+            // params[0]).expand(-1, -1, k)
+    pairs = (tile.long() * n_out + idx.long())[keep]
+    return int(torch.unique(pairs).numel()), int(keep.sum())
+
+
+def scatter_agreement(got, idx, vals, plan, params, n_out):
+    """(within, max error): scatter_add's output against scatter_add_plain,
+    within 1e-5 + 1e-5 |want| beyond the rounding bound of two float32 sums
+    in two orders (banded.scatter_add_slack). At batch 4 sums of up to ~80
+    unit terms cancel, and index_add_'s float32 atomics and the kernel's
+    lie farther apart than 1e-5 + 1e-5 |want| from each other there."""
+    from ssf_slam_tpu_torch.ops import banded
+
+    want = banded.scatter_add_plain(idx, vals, plan, params, n_out).double()
+    # banded.scatter_add_slack, written out: chip_ab.py holds older
+    # checkouts, which lack it, to this agreement too
+    mag = banded.scatter_add_plain(idx, vals.float().abs(), plan, params,
+                                   n_out).double()
+    count = banded.scatter_add_plain(
+        idx, torch.ones_like(vals[..., :1], dtype=torch.float32), plan,
+        params, n_out).double()
+    slack = 2.0 * (count - 1.0).clamp(min=0.0) * 2.0 ** -24 * mag
+    err = (got.double() - want).abs()
+    return (bool((err <= 1e-5 + 1e-5 * want.abs() + slack).all()),
+            err.max().item())
+
+
+def time_scatter(tag: str, idx, vals, plan, params, n_out) -> tuple:
+    """scatter_add at one shape: against its plain version
+    (scatter_agreement), timed under cuda_ms and alone beside its bound;
+    prints one [kernels] line with its device-memory atomics. Returns
+    (alone ms, bound ms)."""
+    from ssf_slam_tpu_torch.ops import banded
+
+    got = banded.scatter_add(idx, vals, plan, params, n_out)
+    ok, err = scatter_agreement(got, idx, vals, plan, params, n_out)
+    check(ok, "kernels", f"scatter_add {tag} differs by {err}")
+    b, n, k, c = vals.shape
+    ms = cuda_ms(lambda: banded.scatter_add(idx, vals, plan, params, n_out))
+    alone = queued_ms(lambda: banded.scatter_add(idx, vals, plan, params,
+                                                 n_out))
+    bound_ms, bound_by = scatter_bound(b, n, k, c, vals.element_size(),
+                                       n_out)
+    rows, entries = scatter_atomics(idx, plan, params, n_out)
+    say("kernels", f"scatter_add {tag} B={b} N={n} K={k} C={c} "
+        f"{str(vals.dtype).split('.')[-1]} -> {n_out} rows (wblk "
+        f"{params[1]}): kernel {ms:.4f} ms, alone {alone:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), share alone "
+        f"{bound_ms / alone:.3f}; device-memory atomics {rows} x C "
+        f"against {entries} x C ({entries / max(rows, 1):.2f}x fewer); "
+        f"max_abs_err {err:.3g}")
+    return alone, bound_ms
+
+
+@contextlib.contextmanager
+def spy_scatter(store: dict):
+    """Within the block, every scatter_add call goes through to the kernel
+    and leaves in ``store`` {(vals shape, type, wblk, n_out): [inputs of
+    the first call, calls]}."""
+    from ssf_slam_tpu_torch.ops import banded
+
+    kernel = banded.scatter_add
+
+    def call(idx, vals, plan, params, n_out):
+        key = (tuple(vals.shape), str(vals.dtype).split(".")[-1], params[1],
+               n_out)
+        if key not in store:
+            store[key] = [(idx.clone(), vals.clone(),
+                           (plan[0].clone(), plan[1]), params, n_out), 0]
+        store[key][1] += 1
+        return kernel(idx, vals, plan, params, n_out)
+
+    banded.scatter_add = call
+    try:
+        yield
+    finally:
+        banded.scatter_add = kernel
+
+
+def time_train_scatters(shapes: dict, label: str) -> None:
+    """scatter_add at every shape of a train step's segment sums (from
+    spy_scatter), and their sum per step, alone, beside the bound."""
+    total = bound_total = 0.0
+    for key, (args, calls) in shapes.items():
+        alone, bound_ms = time_scatter(f"{label} x{calls}", *args)
+        total += calls * alone
+        bound_total += calls * bound_ms
+    calls = sum(c for _, c in shapes.values())
+    say("train", f"scatter_add, {label} step: {calls} segment sums over "
+        f"{len(shapes)} shapes, {total:.4f} ms per step "
+        f"alone, bound {bound_total:.4f} ms, share {bound_total / total:.3f}")
+
+
 def phase_shapes(frames, dev) -> None:
-    """knn_group and knn_idw (redesigned for this card) at every distinct
-    shape of the main path's scan, batch 1; at the level-0 shapes also at
-    batch 4 (the training step's) and cold. Each exact against its plain
-    version at every split S; times at each S."""
+    """knn_group and knn_idw at every distinct shape of the main path's
+    scan, batch 1; at the level-0 shapes also at batch 4 (the training
+    step's) and cold. Each exact against its plain version at every split
+    S; times at each S. Then scatter_add at the level-0 shape, batch 1 and
+    4, float32 and bf16 values."""
     from ssf_slam_tpu_torch.engine.fused import sequence_box, stack_fused_scans
+    from ssf_slam_tpu_torch.ops import banded
     from ssf_slam_tpu_torch.ops import neighbors as nb
 
     for name, shapes in main_path_calls(frames, dev).items():
@@ -648,11 +828,25 @@ def phase_shapes(frames, dev) -> None:
         plan = nb.make_plan(q, sparse, params, 64.0, box)
         time_split("knn_idw", (q, sparse, fields, 7, plan, params),
                    "upsample_multi level 0", cold=True)
+        # the level-0 cost volume's segment sum: 8192 x 16 x 99 into 8192
+        params = nb.band_params(N_POINTS, N_POINTS, 16)
+        plan = nb.make_plan(q, p, params, 64.0, box)
+        _, idx, _ = banded.knn_group(q, p, feats, 16, plan, params)
+        cot = torch.randn(bsz, N_POINTS, 16, 99, generator=gen, device=dev)
+        for vals in (cot, cot.to(torch.bfloat16)):
+            time_scatter("level 0", idx, vals, plan, params, N_POINTS)
 
 
 def cost_attention_inputs(frames, dev):
     """(q_feat, k_feat, q_cost, folded weightnet) of the level-0 cost
     volume (flow0_r, 8192 points) on the bf16 path, frame pair (0, 1)."""
+    return cost_attention_levels(frames, dev)[N_POINTS]
+
+
+def cost_attention_levels(frames, dev) -> dict:
+    """{points: (q_feat, k_feat, q_cost, folded weightnet)} of the two cost
+    volumes (flow0_r at 8192 points, flow1_r at 2048) on the bf16 path,
+    frame pair (0, 1): the inputs of the two launches of a scan."""
     from ssf_slam_tpu_torch.config import FlowNetConfig
     from ssf_slam_tpu_torch.models import costvolume
     from ssf_slam_tpu_torch.weights import load_tflow
@@ -675,39 +869,47 @@ def cost_attention_inputs(frames, dev):
             model(*pcs)
     finally:
         costvolume.cost_attention_fused = fused
-    return max(seen, key=lambda a: a[0].shape[1])
+    return {args[0].shape[1]: args for args in seen}
+
+
+def cost_attention_agreement(got, want) -> tuple[bool, float, str]:
+    """(within COST_ATTENTION_TOL, max abs error, a line of the agreement)
+    of cost_attention's (cost_fwd bf16, w_k float32) against its plain
+    version's."""
+    tol = COST_ATTENTION_TOL
+    if got[0].dtype != torch.bfloat16 or got[1].dtype != torch.float32:
+        return False, float("inf"), f"output types {got[0].dtype}, " \
+            f"{got[1].dtype}"
+    err_cf = (got[0].float() - want[0].float()).abs()
+    err_wk = (got[1] - want[1]).abs()
+    ref = want[0].float().abs()
+    rms = ref.pow(2).mean().sqrt()
+    one_step = (err_cf <= tol["cf_abs"] + tol["cf_rel"] * ref).float().mean()
+    wk_ok = (err_wk <= tol["wk_abs"]).float().mean().item()
+    steps = (err_cf / (2.0 ** -8 * (ref + rms))).max().item()
+    ok = (one_step.item() >= tol["share"]
+          and bool((err_cf <= tol["cf_all"] * (ref + rms)).all())
+          and wk_ok >= tol["share"] and err_wk.max().item() <= tol["wk_all"])
+    return ok, max(err_cf.max().item(), err_wk.max().item()), (
+        f"cost_fwd equal on {(err_cf == 0).float().mean().item():.6f}, "
+        f"within one step on {one_step.item():.6f}, at most {steps:.3f} "
+        f"steps of (|value| + rms); w_k within {tol['wk_abs']} on "
+        f"{wk_ok:.6f}, at most {err_wk.max().item():.3g}")
 
 
 def kernel_cost_attention(q, k, qc, wn) -> dict:
+    """cost_attention on one launch's inputs against its plain version
+    (COST_ATTENTION_TOL), timed under cuda_ms and alone (queued_ms)."""
     from ssf_slam_tpu_torch.ops import attention
 
     _, n, kk, c = q.shape
     c2 = wn[2].shape[1]
     got = attention.cost_attention_fused(q, k, qc, wn)
     want = attention.cost_attention_plain(q, k, qc, wn)
-    tol = COST_ATTENTION_TOL
-    err_cf = (got[0].float() - want[0].float()).abs()
-    err_wk = (got[1] - want[1]).abs()
-    check(got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32,
-          "kernels", "cost_attention output types")
-    ref = want[0].float().abs()
-    rms = ref.pow(2).mean().sqrt()
-    one_step = (err_cf <= tol["cf_abs"] + tol["cf_rel"] * ref).float().mean()
-    wk_ok = (err_wk <= tol["wk_abs"]).float().mean()
-    steps = (err_cf / (2.0 ** -8 * (ref + rms))).max().item()
-    say("kernels", f"cost_attention agreement: cost_fwd equal on "
-        f"{(err_cf == 0).float().mean().item():.6f}, within one step on "
-        f"{one_step.item():.6f}, at most {steps:.3f} steps of (|value| + "
-        f"rms); w_k within {tol['wk_abs']} on {wk_ok.item():.6f}, at most "
-        f"{err_wk.max().item():.3g}")
-    check(one_step.item() >= tol["share"]
-          and bool((err_cf <= tol["cf_all"] * (ref + rms)).all()), "kernels",
-          f"cost_attention cost_fwd: {one_step.item():.6f} within one step, "
-          f"max error {err_cf.max().item()}")
-    check(wk_ok.item() >= tol["share"] and err_wk.max().item()
-          <= tol["wk_all"], "kernels",
-          f"cost_attention w_k: {wk_ok.item():.6f} within {tol['wk_abs']}, "
-          f"max error {err_wk.max().item()}")
+    ok, max_err, agreement = cost_attention_agreement(got, want)
+    say("kernels", f"cost_attention N={n} agreement: {agreement}")
+    check(ok, "kernels", f"cost_attention N={n} misses COST_ATTENTION_TOL: "
+          f"{agreement}")
     # multiply-adds per point: S, q' and k' (3 K*K*C), the weightnet on
     # 2K rows (C*C + C*C2 + C2 each) and the aggregation (K*C); x2 FLOP
     flops = 2 * n * (3 * kk * kk * c + 2 * kk * (c * c + c * c2 + c2)
@@ -715,9 +917,10 @@ def kernel_cost_attention(q, k, qc, wn) -> dict:
     nbytes = (3 * n * kk * c * 2 + sum(t.numel() for t in wn) * 4
               + n * c * 2 + n * kk * 4)
     return dict(
-        max_abs_err=max(err_cf.max().item(), err_wk.max().item()),
-        shape=f"[{n},{kk},{c}] C2={c2} bf16",
+        max_abs_err=max_err, shape=f"[{n},{kk},{c}] C2={c2} bf16",
         ms=cuda_ms(lambda: attention.cost_attention_fused(q, k, qc, wn)),
+        alone=queued_ms(lambda: attention.cost_attention_fused(q, k, qc,
+                                                               wn)),
         plain_ms=cuda_ms(lambda: attention.cost_attention_plain(q, k, qc,
                                                                 wn)),
         # no single PyTorch call computes the chain (attention, an MLP and
@@ -754,6 +957,7 @@ def kernel_attention(q, k) -> dict:
     return dict(
         max_abs_err=max_err, shape=f"[{n},{kk},{c}] bf16",
         ms=cuda_ms(lambda: attention.attention_fused(q, k)),
+        alone=queued_ms(lambda: attention.attention_fused(q, k)),
         plain_ms=cuda_ms(lambda: attention.attention_plain(q, k)),
         # no one call computes the dual-softmax product
         library_ms=None,
@@ -974,13 +1178,13 @@ def phase_main(frames, dev, fuse: bool,
 
 
 def phase_profile(frames, dev, host_ms_per_scan: float, out_dir: str,
-                  fuse: bool, n: int = 8) -> None:
+                  fuse: bool, n: int = 8) -> float:
     """Device time by kernel over n bf16 scans (torch.profiler), written to
     out_dir/profile_<name>.txt; the device busy share is the profiled device
     time per scan over the unprofiled host time per scan (the median of the
     runs in turns). Then the host syncs of n scans
     (torch.cuda.set_sync_debug_mode), counted by the port's source lines
-    that reach them."""
+    that reach them. Returns the device ms per scan."""
     import collections
     import traceback
     import warnings
@@ -1043,6 +1247,7 @@ def phase_profile(frames, dev, host_ms_per_scan: float, out_dir: str,
         say("profile", f"{t:9.4f} ms/scan {c:7.1f}/scan  {key[:90]}")
     for site, count in sites.most_common():
         say("profile", f"{count:4d} syncs  {site}")
+    return dev_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1131,7 +1336,9 @@ def phase_train(dev, profile_dir: str | None = None) -> dict:
     loss, _ = forward_loss(model, batches[0], loss_cfg)
     torch.cuda.synchronize()
     fwd = read_all()
-    grads = torch.autograd.grad(loss, list(params.values()))
+    shapes_bf16 = {}
+    with spy_scatter(shapes_bf16):
+        grads = torch.autograd.grad(loss, list(params.values()))
     torch.cuda.synchronize()
     bwd = {k: v - fwd[k] for k, v in read_all().items()}
     tx.update(dict(zip(params, grads)), state.opt_state, params)
@@ -1201,8 +1408,10 @@ def phase_train(dev, profile_dir: str | None = None) -> dict:
     # plain version on the same graph, then every kernel against its plain
     # version on the same batch
     model = load_tflow(FlowNetConfig(**net), device=dev)
-    loss, g_kernel, (loss_t, params) = _grads(model, batches[0], loss_cfg,
-                                              retain=True)
+    shapes_f32 = {}
+    with spy_scatter(shapes_f32):
+        loss, g_kernel, (loss_t, params) = _grads(model, batches[0],
+                                                  loss_cfg, retain=True)
     kernel_add = banded.scatter_add
     banded.scatter_add = banded.scatter_add_plain
     try:
@@ -1236,6 +1445,10 @@ def phase_train(dev, profile_dir: str | None = None) -> dict:
     check(err[order[0]] <= 1e-3, "train", f"gradient leaf {order[0]} "
           f"differs by {err[order[0]]:.2e} of its norm between the kernels"
           f" and the plain versions")
+    # the segment sums of the bf16 and the f32 step, shape by shape
+    time_train_scatters(shapes_bf16, "bf16")
+    time_train_scatters(shapes_f32, "f32")
+    del shapes_bf16, shapes_f32
     phase_train_parity(dev, loss_cfg)
     return launches
 
@@ -1343,6 +1556,10 @@ def main() -> int:
     phase_f32(frames, dev)
     launches, e2e = phase_main(frames, dev, fuse=False)
     launches_fused, e2e_fused = phase_main(frames, dev, fuse=True)
+    scan = records["cost_attention"]["per_scan"]
+    say("main-fused", f"cost_attention per scan (its two launches, alone, "
+        f"phase 2): {scan['alone']:.4f} ms, bound {scan['bound']:.4f} ms, "
+        f"share {scan['bound'] / scan['alone']:.3f}")
     if profile_dir is not None:
         # the two settings in turns, each order as often as the other
         # (off, on | on, off | off, on | on, off): the host clock's spread
@@ -1355,9 +1572,11 @@ def main() -> int:
             f"{s:.2f}" for s in runs[False]) + f" (median {med[False]:.2f}); "
             "on: " + ", ".join(f"{s:.2f}" for s in runs[True])
             + f" (median {med[True]:.2f})")
-        for fuse in (False, True):
-            phase_profile(frames, dev, 1e3 / med[fuse], profile_dir,
-                          fuse=fuse)
+        device = {fuse: phase_profile(frames, dev, 1e3 / med[fuse],
+                                      profile_dir, fuse=fuse)
+                  for fuse in (False, True)}
+        say("profile", f"device time per scan: fuse_attention off "
+            f"{device[False]:.3f} ms, on {device[True]:.3f} ms")
     launches_entry = phase_entry(frames, dev)
     launches_train = phase_train(dev, profile_dir)
     kernels = []

@@ -201,6 +201,20 @@ def scatter_add_plain(idx, vals, plan, params, n_out):
     return out
 
 
+def scatter_add_slack(idx, vals, plan, params, n_out):
+    """How far apart two float32 sums of scatter_add_plain's terms, taken
+    in any two orders, may lie: 2 (n - 1) 2^-24 sum |v| for an output
+    element of n terms (the rounding bound of a float32 sum in any order,
+    twice), float64 [B, n_out, C]. The scatter-add kernel's atomics sum in
+    an order that changes from run to run."""
+    mag = scatter_add_plain(idx, vals.float().abs(), plan, params, n_out)
+    count = scatter_add_plain(idx, torch.ones_like(vals[..., :1],
+                                                   dtype=torch.float32),
+                              plan, params, n_out)
+    return (2.0 * (count.double() - 1.0).clamp(min=0.0) * 2.0 ** -24
+            * mag.double())
+
+
 def scatter_softmax_sum_plain(idx, vals, w_shift, plan, params, n_out):
     bsz, n, k, c = vals.shape
     e = torch.exp(w_shift.float())

@@ -21,17 +21,27 @@ twin searches), knn's and regroup EXACT; knn_idw's output float32 1e-5
 relative + 1e-6 absolute (the same float32 operations, so in practice
 equal), bf16 within one bf16 rounding step (2^-8 relative + 1e-6), as
 chip_smoke.py holds it; scatter_softmax_sum and scatter_add 1e-5 relative +
-1e-6 absolute, for the float32 atomics' run-to-run order (so is the
-grouping backward through scatter_add against its plain version);
+1e-6 absolute, for the float32 atomics' run-to-run order (so is the grouping
+backward through scatter_add against its plain version); scatter_add also
+at batch 1 and 4, C = 35, 99, 260, band blocks of 256 and 128 rows, over
+plans that overlap unevenly, leave band blocks unreached or put every tile
+on one band, with entries out of band and n_out below M, within the same
+tolerance beyond the rounding bound of two float32 sums in different
+orders (banded.scatter_add_slack: sums of up to ~80 terms cancel there);
 attention ([2, 512, 16, 64]): float32 within 1e-5, bf16 within one bf16
 step on 99.99 % and two steps of (|value| + rms) everywhere, and its
-gradient equal to attention_xla's. cost_attention ([2, 512, 16, 64]
-patches from a seed): float32 within 1e-4 (sum orders); bf16 cost_fwd
+gradient equal to attention_xla's. cost_attention (patches from a seed,
+[2, N, K, C] with C2 hidden units: the main path's N = 8192 and 2048 at
+K = 16, C = 64, C2 = 32, and padded shapes, K = 5 and 32, C = 35 and 128,
+C2 = 17 and 64): float32 within 1e-4 (sum orders); bf16 cost_fwd
 within one bf16 step of its value on 99.99 % of the elements and within two
 steps of (|value| + rms) everywhere, w_k within 1e-3 on 99.99 % and 4e-3
 everywhere (chip_smoke.py's COST_ATTENTION_TOL explains the rounding flips
 behind these, and leaves more room for its network-made inputs, which vary
-from run to run).
+from run to run). The bf16 cost_attention kernel takes its rounded sums in
+the orders that the plain version's library calls use on the card;
+test_cuda_plain_sum_orders checks those orders by themselves, so that a
+library update that changes them fails there by name.
 """
 
 from __future__ import annotations
@@ -194,18 +204,31 @@ def test_cuda_wrappers_reject_bad_inputs(case):
             -1, -1, K).contiguous(), c["feats"], c["plan"], PARAMS)
 
 
+# (N, K, C, C2): the first test's shape, the main path's two launches
+# (flow0_r at 8192 points, flow1_r at 2048) and shapes the kernel pads
+# (K to 16 or 32 rows, C and C2 to multiples of 16)
+COST_ATTENTION_SHAPES = [(512, 16, 64, 32), (8192, 16, 64, 32),
+                         (2048, 16, 64, 32), (512, 5, 64, 32),
+                         (512, 32, 64, 32), (512, 16, 35, 32),
+                         (512, 16, 128, 32), (512, 16, 64, 17),
+                         (512, 16, 64, 64), (512, 5, 35, 17),
+                         (512, 32, 128, 128)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", COST_ATTENTION_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_cost_attention_matches_plain(dtype):
+def test_cuda_cost_attention_matches_plain(dtype, shape):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    n, kk, c, c2 = shape
     gen = torch.Generator(device="cuda").manual_seed(0)
     dt = getattr(torch, dtype)
-    q, k, qc = (0.3 * torch.randn(2, 512, 16, 64, device="cuda",
+    q, k, qc = (0.3 * torch.randn(2, n, kk, c, device="cuda",
                                   generator=gen) for _ in range(3))
     q, k, qc = q.to(dt), k.to(dt), qc.to(dt)
     wn = tuple(0.3 * torch.randn(*s, device="cuda", generator=gen)
-               for s in [(64, 64), (64,), (64, 32), (32,), (32, 1), (1,)])
+               for s in [(c, c), (c,), (c, c2), (c2,), (c2, 1), (1,)])
     before = attention.LAUNCHES["cost_attention"]
     cf, wk = attention.cost_attention_fused(q, k, qc, wn)
     assert attention.LAUNCHES["cost_attention"] == before + 1
@@ -224,6 +247,84 @@ def test_cuda_cost_attention_matches_plain(dtype):
         assert ew.max().item() <= 4e-3
     with pytest.raises(TypeError):  # mixed feature types
         attention.cost_attention_fused(q, k, qc.double(), wn)
+
+
+def _seq_mm(a, b):
+    """a @ b as one float32 FMA after another over the inner index, inner
+    index ascending: bf16 operands make each product exact in float32, so
+    a product and a rounded add are one FMA."""
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1], device=a.device)
+    for m in range(a.shape[-1]):
+        acc = acc + a[..., m, None].float() * b[..., m:m + 1, :].float()
+    return acc
+
+
+def _col_sum(e):
+    """Sum over the row index (dim -2) in four accumulators of i mod 4,
+    each in ascending i, combined as ((a0 + a1) + a2) + a3."""
+    acc = [torch.zeros_like(e[..., 0, :]) for _ in range(4)]
+    for i in range(e.shape[-2]):
+        acc[i % 4] = acc[i % 4] + e[..., i, :]
+    return ((acc[0] + acc[1]) + acc[2]) + acc[3]
+
+
+def _row_sum(e):
+    """Sum over the column index (dim -1) in a halving tree over 32 columns
+    (zeros past K): the upper half added onto the lower, 16, 8, 4, 2, 1."""
+    x = torch.nn.functional.pad(e, (0, 32 - e.shape[-1]))
+    for w in (16, 8, 4, 2, 1):
+        x = x[..., :w] + x[..., w:2 * w]
+    return x[..., 0]
+
+
+# the main path's two launches and the 32-row, 128-channel instance's
+# shape; at odd widths cuBLAS takes other orders (at C = 35, C2 = 17 the
+# second layer's product is not summed one FMA after another), and there
+# the kernel's agreement rests on test_cuda_cost_attention_matches_plain's
+# tolerance alone
+ORDER_SHAPES = [(8192, 16, 64, 32), (2048, 16, 64, 32), (512, 32, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ORDER_SHAPES)
+def test_cuda_plain_sum_orders(cuda_dev, shape):
+    """The summation orders of cost_attention_plain's library calls on the
+    card (cuBLAS's float32 products, torch.sum over either axis of the
+    [.., K, K] score tile), which the bf16 cost_attention kernel reproduces
+    so that its bf16 roundings are the plain version's. A failure here
+    means the library changed its order (a PyTorch or cuBLAS update), not
+    that the kernel is at fault: the kernel's agreement with its plain
+    version falls then, and its card test may fail with it."""
+    n, kk, c, c2 = shape
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def bf(*s):
+        return (0.3 * torch.randn(1, *s, device="cuda", generator=gen)).to(
+            torch.bfloat16)
+
+    q, k, x = bf(n, kk, c), bf(n, kk, c), bf(n, kk, c)
+    w = torch.rand(1, n, kk, kk, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    w1, w2 = bf(c, c)[0], bf(c, c2)[0]
+    mm = attention._mm32
+    for what, got, want in [
+            ("S = q k^T", mm(q, k.transpose(-1, -2)),
+             _seq_mm(q, k.transpose(-1, -2))),
+            ("W k", mm(w, k), _seq_mm(w, k)),
+            ("W^T q", mm(w.transpose(-1, -2), q),
+             _seq_mm(w.transpose(-1, -2), q)),
+            ("x W1", mm(x, w1), _seq_mm(x, w1)),
+            ("h W2", mm(x, w2), _seq_mm(x, w2))]:
+        assert torch.equal(got, want), (
+            f"plain order changed: torch.matmul's float32 {what} at "
+            f"{tuple(got.shape)} no longer sums one FMA after another")
+    e = torch.rand(1, n, kk, kk, device="cuda", generator=gen)
+    assert torch.equal(torch.sum(e, dim=-2), _col_sum(e)), (
+        "plain order changed: torch.sum over dim -2 of [.., K, K] no longer "
+        "sums in four strided accumulators")
+    assert torch.equal(torch.sum(e, dim=-1), _row_sum(e)), (
+        "plain order changed: torch.sum over dim -1 of [.., K, K] no longer "
+        "sums in a halving tree over 32")
 
 
 @pytest.mark.cuda
@@ -249,6 +350,42 @@ def test_cuda_knn_and_knn_group2_match_plain(case):
     assert banded.LAUNCHES["knn_group2"] == before["knn_group2"] + 2
 
 
+def _scatter_plan(kind, bsz, params):
+    """(idx [bsz, 1024, K] int32 on the card, plan, n_out) of one plan kind,
+    as tests/test_torch_scatter_blocks.py makes them: the lidar cloud's
+    knn_group indices under its plan; a plan whose bands overlap unevenly,
+    one that leaves band blocks no tile reaches and one that puts every
+    tile on one band, with indices in band and 20 % anywhere; entries out
+    of their band; n_out below the target count."""
+    q, p, plan = _split_case(1024, bsz, params, "lidar")
+    wblk, m = params[1], p.shape[1]
+    n_bands, tiles = m // wblk, 1024 // 256
+    rng = np.random.default_rng(7)
+    if kind in ("lidar", "out_of_band", "n_out_below_m"):
+        f = torch.zeros(bsz, m, 4, device="cuda")
+        _, idx, _ = banded.knn_group(q, p, f, K, plan, params)
+    else:
+        b0 = {"uneven": np.array([0, 0, 3, n_bands - 3]),
+              "unreached": np.zeros(tiles, np.int64),
+              "all_reach": np.full(tiles, n_bands // 2 - 1)}[kind]
+        b0 = torch.from_numpy(np.stack([np.roll(b0, i) for i in range(bsz)]))
+        plan = (b0.to(torch.int32).cuda(), m)
+        base = torch.repeat_interleave(plan[0].long() * wblk, 256, dim=1)
+        near = base[..., None] + torch.from_numpy(
+            rng.integers(0, 3 * wblk, (bsz, 1024, K))).cuda()
+        anywhere = torch.from_numpy(rng.integers(0, m, (bsz, 1024, K))).cuda()
+        wild = torch.from_numpy(rng.random((bsz, 1024, K)) < 0.2).cuda()
+        idx = torch.where(wild, anywhere, near).to(torch.int32)
+    if kind == "out_of_band":  # out of the first tile's band: dropped
+        idx[:, :256:37, 0] = m - 1
+    n_out = 3 * m // 4 - 5 if kind == "n_out_below_m" else m
+    return idx.contiguous(), plan, n_out
+
+
+SCATTER_KINDS = ["lidar", "uneven", "unreached", "all_reach", "out_of_band",
+                 "n_out_below_m"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_scatter_add_matches_plain(case, dtype):
@@ -264,6 +401,31 @@ def test_cuda_scatter_add_matches_plain(case, dtype):
     assert banded.LAUNCHES["scatter_add"] == before + 1
     want = banded.scatter_add_plain(idx, vals, c["plan"], PARAMS, M)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SCATTER_KINDS)
+@pytest.mark.parametrize("c", [35, 99, 260])
+@pytest.mark.parametrize("bsz", [1, 4])
+@pytest.mark.parametrize("params", SPLIT_PARAMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_scatter_add_plans_match_plain(cuda_dev, dtype, params, bsz, c,
+                                            kind):
+    idx, plan, n_out = _scatter_plan(kind, bsz, params)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    vals = torch.randn(bsz, 1024, K, c, device="cuda", generator=gen)
+    vals = vals.to(getattr(torch, dtype))
+    before = banded.LAUNCHES["scatter_add"]
+    got = banded.scatter_add(idx, vals, plan, params, n_out)
+    assert banded.LAUNCHES["scatter_add"] == before + 1
+    want = banded.scatter_add_plain(idx, vals, plan, params, n_out)
+    # index_add_'s float32 atomics and the kernel's sum in two orders that
+    # change from run to run: within 1e-6 + 1e-5 |want| beyond the rounding
+    # bound of the two sums
+    slack = banded.scatter_add_slack(idx, vals, plan, params, n_out)
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= 1e-6 + 1e-5 * want.abs().double() + slack).all()), \
+        f"max error {err.max().item():.3g}"
 
 
 @pytest.mark.cuda
