@@ -7,14 +7,15 @@ second checkout (for example the parent commit, unpacked with
     python3 chip_ab.py KERNELS OLD [NEW]
 
 KERNELS is a comma-separated list of knn_group, knn_idw, knn, knn_group2,
-cost_attention and scatter_add, or ``all``. It imports nothing of JAX and
-nothing of the JAX package. Four processes run in turn, OLD, NEW, NEW, OLD
-(NEW defaults to this checkout); each imports the port
-(``ssf_slam_tpu_torch``) of its checkout, builds that checkout's kernels
-there, and runs the kernels asked for on chip_smoke.py's inputs: bench
-frames Morton-sorted under the sequence box, at batch 1 and, for knn_group,
-knn_idw and scatter_add, batch 4 (frame pairs (0, 1), (2, 3), (4, 5),
-(6, 7)):
+cost_attention, scatter_add, regroup and scatter_softmax_sum, or ``all``.
+It imports nothing of JAX and nothing of the JAX package. Four processes
+run in turn, OLD, NEW, NEW, OLD (NEW defaults to this checkout); each
+imports the port (``ssf_slam_tpu_torch``) of its checkout, builds that
+checkout's kernels there, and runs the kernels asked for on
+chip_smoke.py's inputs: bench frames Morton-sorted under the sequence
+box, at batch 1 and, for knn_group, knn_idw, scatter_add, regroup and
+scatter_softmax_sum, batch 4 (frame pairs (0, 1), (2, 3), (4, 5), (6,
+7)):
 
 - knn_group: 8192 <- 8192, k = 16, C = 99 f32; knn_idw: 8192 <- 2048,
   k = 7, C = 132 bf16; knn and knn_group2 at knn_group's shape;
@@ -22,7 +23,15 @@ knn_idw and scatter_add, batch 4 (frame pairs (0, 1), (2, 3), (4, 5),
   cost_attention_levels: flow0_r at 8192 points, flow1_r at 2048, with the
   folded weightnet of the committed weights), bf16;
 - scatter_add: the level-0 cost volume's segment sum, knn_group's indices
-  and a seeded cotangent [B, 8192, 16, 99], float32 and bf16.
+  and a seeded cotangent [B, 8192, 16, 99], float32 and bf16; then the 18
+  segment sums of one bf16 train step (8192 points, batch 4: bench pairs
+  0-3, the committed weights, train mode), each shape with its inputs as
+  the step made them, and their sum a step (calls x time);
+- regroup: the level-0 cost volume's patch grouping, knn_group's indices
+  and seeded costs [B, 8192, 64] bf16;
+- scatter_softmax_sum: the level-0 cost volume's backward cost,
+  knn_group's indices, seeded values [B, 8192, 16, 64] bf16 and logits
+  shifted by their maximum.
 
 Each time is taken two ways, in both checkouts alike:
 
@@ -34,13 +43,14 @@ Each time is taken two ways, in both checkouts alike:
 
 Both come from this checkout's chip_smoke.py, imported before the port.
 
-knn_group, knn_idw, knn and knn_group2 must give the same bits in every
-process (a hash of their outputs). cost_attention and scatter_add sum in
-another order than the old kernels, so each process holds them to a
-reference instead: cost_attention to its own checkout's plain version
-within chip_smoke.py's COST_ATTENTION_TOL, scatter_add to its own
-checkout's plain version within chip_smoke.py's scatter_agreement (1e-5 +
-1e-5 |want| beyond the rounding bound of two float32 sums).
+knn_group, knn_idw, knn, knn_group2 and regroup must give the same bits
+in every process (a hash of their outputs). cost_attention and the
+scatters sum in another order than the old kernels, so each process holds
+them to a reference instead: cost_attention to its own checkout's plain
+version within chip_smoke.py's COST_ATTENTION_TOL, scatter_add and
+scatter_softmax_sum to their own checkout's plain versions within
+chip_smoke.py's scatter_agreement and softmax_agreement (1e-5 + 1e-5 |want|
+beyond the rounding bound of two float32 sums).
 Prints the card's name and power limit, one line per kernel, shape and
 method (OLD's two readings, NEW's two, NEW / OLD of their means) and,
 last, one JSON object of every reading. Exits nonzero when CUDA is absent,
@@ -56,12 +66,14 @@ import os
 import subprocess
 import sys
 
-from chip_smoke import (cost_attention_agreement, cost_attention_levels,
-                        cuda_ms, queued_ms, scatter_agreement)
+from chip_smoke import (TRAIN_BATCH, cost_attention_agreement,
+                        cost_attention_levels, cuda_ms, queued_ms,
+                        scatter_agreement, softmax_agreement, spy_scatter)
 
 N_POINTS = 8192
 KERNELS = ("knn_group", "knn_idw", "knn", "knn_group2", "cost_attention",
-           "scatter_add")
+           "scatter_add", "regroup", "scatter_softmax_sum")
+TRAIN_TAG = "scatter_add train step"
 
 
 def digest(tensors) -> str:
@@ -73,6 +85,33 @@ def digest(tensors) -> str:
         h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
                  .tobytes())
     return h.hexdigest()[:16]
+
+
+def train_step_sums(frames, dev) -> dict:
+    """{(vals shape, type, wblk, n_out): [inputs, calls]} of the segment
+    sums of one bf16 train step's backward (8192 points, batch 4, train
+    mode, the committed weights), from chip_smoke.py's spy_scatter."""
+    import numpy as np
+    import torch
+
+    from ssf_slam_tpu_torch.config import FlowNetConfig, LossConfig
+    from ssf_slam_tpu_torch.train.trainer import forward_loss, to_device
+    from ssf_slam_tpu_torch.weights import load_tflow
+
+    batch = to_device({k: np.stack([f[k] for f in frames[:TRAIN_BATCH]])
+                       for k in ("pos1", "pos2", "gt", "mask1", "s_fg_mask")},
+                      dev)
+    model = load_tflow(FlowNetConfig(npoint=N_POINTS, joint_seg=True,
+                                     dtype="bfloat16",
+                                     neighbor_backend="banded"), device=dev)
+    model.train()
+    params = list(model.parameters())
+    loss, _ = forward_loss(model, batch, LossConfig())
+    shapes = {}
+    with spy_scatter(shapes):
+        torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    return shapes
 
 
 def child(root: str, kernels: list[str], dev: str = "cuda") -> dict:
@@ -103,9 +142,9 @@ def child(root: str, kernels: list[str], dev: str = "cuda") -> dict:
               for i in range(8)]
     out = {}
 
-    def take(tag, fn, agree=None):
+    def take(tag, fn, agree=None, calls=1):
         got = fn()
-        reading = dict(loop=cuda_ms(fn), queued=queued_ms(fn))
+        reading = dict(loop=cuda_ms(fn), queued=queued_ms(fn), calls=calls)
         if agree is None:
             reading["digest"] = digest(got)
         else:
@@ -157,6 +196,43 @@ def child(root: str, kernels: list[str], dev: str = "cuda") -> dict:
                 take(f"scatter_add B={bsz} 8192x16x99 {dt}",
                      lambda vals=vals: banded.scatter_add(
                          idx, vals, plan, params, N_POINTS), close)
+        # regroup and scatter_softmax_sum draw from a generator of their
+        # own, so that the inputs above stay those of earlier checkouts
+        gen2 = torch.Generator(device=dev).manual_seed(1)
+        if "regroup" in kernels or "scatter_softmax_sum" in kernels:
+            _, idx, _ = banded.knn_group_plain(q, p, feats, 16, plan, params)
+        if "regroup" in kernels:
+            cost = torch.randn(bsz, N_POINTS, 64, generator=gen2,
+                               device=dev).to(torch.bfloat16)
+            take(f"regroup B={bsz} [8192,16]x[8192,64] bf16",
+                 lambda: banded.regroup(idx, cost, plan, params))
+        if "scatter_softmax_sum" in kernels:
+            vals = torch.randn(bsz, N_POINTS, 16, 64, generator=gen2,
+                               device=dev).to(torch.bfloat16)
+            w = torch.randn(bsz, N_POINTS, 16, generator=gen2, device=dev)
+            w = (w - w.max()).contiguous()
+
+            def within(got):
+                ok, err = softmax_agreement(got, idx, vals, w, plan, params,
+                                            N_POINTS)
+                return ok, f"max error {err:.3g}"
+
+            take(f"scatter_softmax_sum B={bsz} 8192x16x64 bf16",
+                 lambda: banded.scatter_softmax_sum(idx, vals, w, plan,
+                                                    params, N_POINTS),
+                 within)
+    if "scatter_add" in kernels:
+        for key, (args, calls) in sorted(train_step_sums(frames,
+                                                         dev).items()):
+
+            def close(got, args=args):
+                ok, err = scatter_agreement(got, *args)
+                return ok, f"max error {err:.3g}"
+
+            shape = "x".join(map(str, key[0]))
+            take(f"{TRAIN_TAG} x{calls} {shape} {key[1]} -> {key[3]} "
+                 f"(wblk {key[2]})",
+                 lambda args=args: banded.scatter_add(*args), close, calls)
     if "cost_attention" in kernels:
         for n, (qf, kf, qc, wn) in sorted(
                 cost_attention_levels(frames, dev).items(), reverse=True):
@@ -236,6 +312,17 @@ def main() -> int:
             if "agreement" in r[tag]:
                 print(f"[ab] {tag} {side}: {r[tag]['agreement']}",
                       flush=True)
+    train = [tag for tag in runs[0][1] if tag.startswith(TRAIN_TAG)]
+    for method in ("loop", "queued") if train else ():
+        got = {s: [sum(r[t][method] * r[t]["calls"] for t in train)
+                   for side, r in runs if side == s] for s in ("old", "new")}
+        ratio = sum(got["new"]) / sum(got["old"])
+        print(f"[ab] {TRAIN_TAG}, its "
+              f"{sum(runs[0][1][t]['calls'] for t in train)} segment sums "
+              f"(calls x time) {method}: old "
+              + " ".join(f"{t:.4f}" for t in got["old"]) + " ms, new "
+              + " ".join(f"{t:.4f}" for t in got["new"])
+              + f" ms, new/old {ratio:.3f}", flush=True)
     print(json.dumps({"card": smi, "order": [s for s, _ in runs],
                       "readings": [r for _, r in runs]}), flush=True)
     return 0 if good else 1

@@ -8,10 +8,12 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each
 printing its own line and failing loudly:
 
 1. build: compile every CUDA source of the port with nvcc (all at once,
-   beside three measurement builds of band_knn.cu with the split S fixed at
-   8, 16 and 32), check in nvcc's -Xptxas -v report (kept beside each
-   library) that every knn_group / knn_idw, bf16 cost_attention and
-   scatter_add instance has a 0-byte stack frame and no spills (printing
+   beside the measurement builds: band_knn.cu with the split S fixed at 8,
+   16 and 32, cost_attention.cu without its recheck, band_scatter.cu with
+   the scatters' value loads fixed at 1 and 4 elements, where the shipped
+   library takes 2), check in nvcc's -Xptxas -v report (kept beside each
+   library) that every knn_group / knn_idw, bf16 cost_attention, scatter
+   and regroup instance has a 0-byte stack frame and no spills (printing
    the shipped libraries' lines) and print the card's name and power
    limit;
 2. kernels: each of the nine kernels at its largest main-path shape, on
@@ -37,6 +39,11 @@ printing its own line and failing loudly:
    of a scan (8192 and 2048 points) and scatter_add at the level-0 shape,
    batch 1 and 4, float32 and bf16 values, are timed alone too, the latter
    with its device-memory atomics against one an entry and channel;
+   scatter_softmax_sum alone with each value-load width build; regroup
+   (exact) and scatter_softmax_sum (1e-5 + 1e-5 |want| beyond the rounding
+   bound of two float32 sums in two orders, softmax_agreement) at every
+   distinct shape of the 2-frame run, at batch 1 and 4, timed beside their
+   plain versions and bounds;
 3. f32: the committed weights over the first 8 bench frames through the
    whole SSF step against the JAX reference fixtures
    (tests/fixtures/torch_port/ssf_fused_ref.npz, ssf_slam_ref.npz):
@@ -57,6 +64,12 @@ printing its own line and failing loudly:
    with their gradients) at the level-0 shapes, counters reset just before
    and read just after: one launch each of knn, knn_group2 and attention,
    two of scatter_add;
+6b. loop: tests/test_torch_slam.py's 72-frame out-and-back circuit (1024
+   points, provided flow with an odometry drift) through the SSF
+   run_sequence on the card, so that loop closure, ICP and the pose graph
+   run there: n_loops equal to the JAX fixture's
+   (tests/fixtures/torch_port/ssf_slam_small_ref.npz, loop/*) and > 0,
+   is_keyframe equal, pose_t and odom_t within LOOP_TOL (1e-3 m);
 7. train: the training path at full width (8192 points, joint seg, bf16,
    banded, batch 4), warm-started from the committed weights with a fresh
    optimizer, on a corpus of 2 worlds x 4 frames with label weights: the
@@ -66,7 +79,8 @@ printing its own line and failing loudly:
    fixed batch falling over 8 steps at TRAIN_LR; the first step's f32
    gradients with the backward's scatter_add against its plain version;
    scatter_add at every shape of the bf16 and the f32 step's segment sums,
-   against its plain version and timed alone beside its bound;
+   against its plain version and timed alone beside its bound (the bf16
+   step's also with each value-load width build);
    and the f32 train step against the JAX fixture
    tests/fixtures/torch_port/ssf_train_ref.npz (loss 1e-4 relative, each
    leaf's gradient norm 1e-3 relative, the new batch statistics 1e-4).
@@ -293,16 +307,30 @@ SPLIT_BUILDS = tuple(("ssf_band_knn", (f"SSF_KNN_SPLIT={s}",))
 # a measurement build of cost_attention.cu without the recheck of the sums
 # near a bf16 rounding boundary, to time what the recheck costs
 RECHECK_BUILD = ("ssf_cost_attention", ("SSF_CA_NO_RECHECK",))
-MEASUREMENT_BUILDS = SPLIT_BUILDS + (RECHECK_BUILD,)
+# measurement builds of band_scatter.cu: the elements of the scatters'
+# value loads (VEC, where C and the values' pointer allow vector loads; a
+# lane takes max(2, VEC) channels) fixed at 1 and 4 (the shipped library
+# takes 2), kept while the scatters' remaining gap is open (ROADMAP.md §2)
+SCATTER_VECS = (1, 4)
+VEC_BUILDS = tuple(("ssf_band_scatter", (f"SSF_SCATTER_VEC={v}",))
+                   for v in SCATTER_VECS)
+MEASUREMENT_BUILDS = SPLIT_BUILDS + (RECHECK_BUILD,) + VEC_BUILDS
 NO_FRAME = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 # the kernels held to NO_FRAME in each library's report, and how many
 # instances each library has: knn_group / knn_idw (K 3, 5, 7, 8, 16, 32 x
 # two element types x two kernels, and x S 8, 16, 32 in the shipped
 # library), the bf16 cost attention ((KP 16 x CP 32, 64, 128) and (KP 32
-# x CP 128), x C2P 16, 32, 64, 128) and the scatter-add (two element types)
+# x CP 128), x C2P 16, 32, 64, 128), the scatters (two element types x
+# scatter-add and softmax-sum x VEC 1 and the shipped VEC) and regroup
+# (units of 16, 8, 4 and 2 bytes)
 FRAME_CHECKS = {"ssf_band_knn": (("knn_group_kernel", "knn_idw_kernel"), 72),
                 "ssf_cost_attention": (("cost_attention_kernel",), 16),
-                "ssf_band_scatter": (("scatter_add_kernel",), 2)}
+                "ssf_band_scatter": (("scatter_kernel", "regroup_kernel"),
+                                     12)}
+# the measurement builds held to NO_FRAME too, and their instance counts
+# (one S; VEC = 1 has one scatter instance a type and kind)
+CHECKED_BUILDS = {**{b: 24 for b in SPLIT_BUILDS}, VEC_BUILDS[0]: 8,
+                  VEC_BUILDS[1]: 12}
 
 
 def check_frames(label: str, log: str, kernels) -> list[str]:
@@ -316,7 +344,10 @@ def check_frames(label: str, log: str, kernels) -> list[str]:
             frame = lines[i + 1].strip() if i + 1 < len(lines) else ""
             check(frame == NO_FRAME, "build",
                   f"{label}: {m.group(1)}: {frame}")
-            out.append(f"{m.group(1)}: {frame}")
+            regs = re.search(r"Used \d+ registers",
+                             lines[i + 2] if i + 2 < len(lines) else "")
+            out.append(f"{m.group(1)}: {frame}"
+                       + (f"; {regs.group(0)}" if regs else ""))
     return out
 
 
@@ -325,12 +356,13 @@ def phase_build() -> str:
 
     t0 = time.perf_counter()
     cuda_build.build_all(variants=MEASUREMENT_BUILDS)
-    for name, defines in [(n, ()) for n in FRAME_CHECKS] + list(SPLIT_BUILDS):
+    for name, defines in [(n, ()) for n in FRAME_CHECKS] + list(
+            CHECKED_BUILDS):
         kernels, count = FRAME_CHECKS[name]
         entries = check_frames(name + "".join(f" -D{d}" for d in defines),
                                cuda_build.ptxas_report(name, defines),
                                kernels)
-        want = count // 3 if defines else count  # one S a measurement build
+        want = CHECKED_BUILDS[(name, defines)] if defines else count
         check(len(entries) == want, "build", f"{name} {defines}: "
               f"{len(entries)} {' / '.join(kernels)} entries, not {want}")
         if not defines:
@@ -440,8 +472,8 @@ def phase_kernels(frames, dev) -> dict:
     w_shift = (w - w.max()).contiguous()
     got = banded.scatter_softmax_sum(idx_l0, vals, w_shift, plan_l0,
                                      params_l0, N_POINTS)
-    want = banded.scatter_softmax_sum_plain(idx_l0, vals, w_shift, plan_l0,
-                                            params_l0, N_POINTS)
+    want = want_ss = banded.scatter_softmax_sum_plain(
+        idx_l0, vals, w_shift, plan_l0, params_l0, N_POINTS)
     err = (got - want).abs()
     check(bool((err <= 1e-5 + 1e-5 * want.abs()).all()), "kernels",
           f"scatter_softmax_sum differs by {err.max().item()}")
@@ -570,6 +602,23 @@ def phase_kernels(frames, dev) -> dict:
         f"(-D{RECHECK_BUILD[1][0]}): alone {bare:.4f} ms against "
         f"{per_level[N_POINTS]['alone']:.4f} ms shipped; agreement "
         f"{agreement}")
+    # the scatters' value-load width (measurement builds), level 0 alone:
+    # each build held as the shipped library is
+    by_vec = {}
+    for vec, build in zip(SCATTER_VECS, VEC_BUILDS):
+        with cuda_build.variant(*build):
+            got = banded.scatter_softmax_sum(idx_l0, vals_ss, w_shift,
+                                             plan_l0, params_l0, N_POINTS)
+            err = (got - want_ss).abs()
+            check(bool((err <= 1e-5 + 1e-5 * want_ss.abs()).all()),
+                  "kernels", f"scatter_softmax_sum VEC={vec} differs by "
+                  f"{err.max().item()}")
+            by_vec[vec] = queued_ms(lambda: banded.scatter_softmax_sum(
+                idx_l0, vals_ss, w_shift, plan_l0, params_l0, N_POINTS))
+    say("kernels", f"scatter_softmax_sum N={N_POINTS} K=16 C=64 bf16 alone "
+        f"by value-load width (-DSSF_SCATTER_VEC): " + ", ".join(
+            f"VEC={v} {t:.4f}" for v, t in by_vec.items()) + f" ms, shipped "
+        f"(VEC=2) {out['scatter_softmax_sum']['alone']:.4f}")
     out["attention"] = kernel_attention(inputs[0], inputs[1])
     for name, r in out.items():
         alone = f", alone {r['alone']:.4f} ms" if "alone" in r else ""
@@ -594,6 +643,12 @@ SPLIT_LAYERS = {
 }
 
 
+# the main path's regroup and scatter_softmax_sum calls by query count:
+# the banded cost volume of each level
+BAND_KERNELS = ("regroup", "scatter_softmax_sum")
+BAND_LAYERS = {8192: "flow0_r", 2048: "flow1_r"}
+
+
 def split_build(split: int):
     """A context in which knn_group and knn_idw launch with S = split lanes
     per query (a measurement build of band_knn.cu); 0: the shipped
@@ -606,26 +661,32 @@ def split_build(split: int):
 
 
 def main_path_calls(frames, dev) -> dict:
-    """{kernel: {shape key: [inputs, calls]}} of knn_group and knn_idw in a
-    2-frame bf16 run of the main path (fuse_attention off; the carry's
-    tower, then two scans), the inputs of each shape's first call kept."""
+    """{kernel: {shape key: [inputs, calls]}} of knn_group, knn_idw,
+    regroup and scatter_softmax_sum in a 2-frame bf16 run of the main path
+    (fuse_attention off; the carry's tower, then two scans), the inputs of
+    each shape's first call kept."""
     from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
     from ssf_slam_tpu_torch.ops import banded
 
-    seen = {name: {} for name in SPLIT_LAYERS}
+    seen = {name: {} for name in (*SPLIT_LAYERS, *BAND_KERNELS)}
     wrapped = {name: getattr(banded, name) for name in seen}
 
     def spy(name):
-        def call(query, points, feats, k, plan, params):
-            key = (query.shape[0], query.shape[1], points.shape[1], k,
-                   feats.shape[-1], str(feats.dtype).split(".")[-1],
-                   params[1] * params[2])
+        def call(*args):
+            if name in SPLIT_LAYERS:
+                query, points, feats, k, plan, params = args
+                key = (query.shape[0], query.shape[1], points.shape[1], k,
+                       feats.shape[-1], str(feats.dtype).split(".")[-1],
+                       params[1] * params[2])
+            else:  # regroup (idx, feats, ...), softmax sum (idx, vals, ...)
+                idx, vals = args[:2]
+                key = (*idx.shape, vals.shape[-1],
+                       str(vals.dtype).split(".")[-1], args[-1]
+                       if name == "scatter_softmax_sum" else vals.shape[1])
             if key not in seen[name]:
-                seen[name][key] = [(query.clone(), points.clone(),
-                                    feats.clone(), k,
-                                    (plan[0].clone(), plan[1]), params), 0]
+                seen[name][key] = [map_inputs(args, torch.Tensor.clone), 0]
             seen[name][key][1] += 1
-            return wrapped[name](query, points, feats, k, plan, params)
+            return wrapped[name](*args)
         return call
 
     model = bf16_model(dev, fuse=False)
@@ -688,10 +749,11 @@ def time_split(name: str, args, tag: str, cold: bool = False) -> None:
 
 
 def scatter_atomics(idx, plan, params, n_out) -> tuple[int, int]:
-    """(band rows reached, kept entries): the scatter-add kernel's
+    """(band rows reached, kept entries): the scatter kernels'
     device-memory atomics per channel, one for each (query tile, band row
-    its entries reach) at one part a tile, against one for each kept
-    entry (one warp per entry, atomics straight into device memory)."""
+    its entries reach) at one part a tile and one warp range a row, against
+    one for each kept entry (one warp per entry, atomics straight into
+    device memory)."""
     from ssf_slam_tpu_torch.ops import banded
 
     bsz, n, k = idx.shape
@@ -724,20 +786,32 @@ def scatter_agreement(got, idx, vals, plan, params, n_out):
             err.max().item())
 
 
-def time_scatter(tag: str, idx, vals, plan, params, n_out) -> tuple:
+def time_scatter(tag: str, idx, vals, plan, params, n_out,
+                 vecs: bool = False) -> tuple:
     """scatter_add at one shape: against its plain version
     (scatter_agreement), timed under cuda_ms and alone beside its bound;
-    prints one [kernels] line with its device-memory atomics. Returns
-    (alone ms, bound ms)."""
-    from ssf_slam_tpu_torch.ops import banded
+    prints one [kernels] line with its device-memory atomics. With
+    ``vecs``, also alone with each measurement build of the value-load width
+    (each held as the shipped library). Returns (alone ms, bound ms,
+    {VEC: alone ms})."""
+    from ssf_slam_tpu_torch.ops import banded, cuda_build
 
-    got = banded.scatter_add(idx, vals, plan, params, n_out)
+    def run():
+        return banded.scatter_add(idx, vals, plan, params, n_out)
+
+    got = run()
     ok, err = scatter_agreement(got, idx, vals, plan, params, n_out)
     check(ok, "kernels", f"scatter_add {tag} differs by {err}")
+    by_vec = {}
+    for vec, build in zip(SCATTER_VECS, VEC_BUILDS) if vecs else ():
+        with cuda_build.variant(*build):
+            ok, e = scatter_agreement(run(), idx, vals, plan, params, n_out)
+            check(ok, "kernels", f"scatter_add {tag} VEC={vec} differs by "
+                  f"{e}")
+            by_vec[vec] = queued_ms(run)
     b, n, k, c = vals.shape
-    ms = cuda_ms(lambda: banded.scatter_add(idx, vals, plan, params, n_out))
-    alone = queued_ms(lambda: banded.scatter_add(idx, vals, plan, params,
-                                                 n_out))
+    ms = cuda_ms(run)
+    alone = queued_ms(run)
     bound_ms, bound_by = scatter_bound(b, n, k, c, vals.element_size(),
                                        n_out)
     rows, entries = scatter_atomics(idx, plan, params, n_out)
@@ -747,8 +821,81 @@ def time_scatter(tag: str, idx, vals, plan, params, n_out) -> tuple:
         f"{bound_ms:.4f} ms ({bound_by}), share alone "
         f"{bound_ms / alone:.3f}; device-memory atomics {rows} x C "
         f"against {entries} x C ({entries / max(rows, 1):.2f}x fewer); "
-        f"max_abs_err {err:.3g}")
-    return alone, bound_ms
+        f"max_abs_err {err:.3g}" + "".join(
+            f"; VEC={v} alone {t:.4f}" for v, t in by_vec.items()))
+    return alone, bound_ms, by_vec
+
+
+def softmax_agreement(got, idx, vals, w_shift, plan, params, n_out):
+    """(within, max error): scatter_softmax_sum's output against its plain
+    version, within 1e-5 + 1e-5 |want| beyond the rounding bound of two
+    float32 sums of its terms in two orders (banded.
+    scatter_softmax_sum_slack, written out as scatter_agreement writes
+    scatter_add's, for older checkouts)."""
+    from ssf_slam_tpu_torch.ops import banded
+
+    args = (w_shift, plan, params, n_out)
+    want = banded.scatter_softmax_sum_plain(idx, vals, *args).double()
+    mag = banded.scatter_softmax_sum_plain(idx, vals.abs(), *args).double()
+    count = banded.scatter_add_plain(
+        idx, torch.ones_like(vals[..., :1], dtype=torch.float32), plan,
+        params, n_out).double()
+    slack = 2.0 * (count - 1.0).clamp(min=0.0) * 2.0 ** -24 * mag
+    err = (got.double() - want).abs()
+    return (bool((err <= 1e-5 + 1e-5 * want.abs() + slack).all()),
+            err.max().item())
+
+
+def map_inputs(args, fn) -> tuple:
+    """A banded kernel call's inputs with fn applied to every tensor and to
+    the plan's b0 (the plan's n_valid, k and the band params stay)."""
+    return tuple((fn(a[0]), a[1]) if isinstance(a, tuple)
+                 and isinstance(a[0], torch.Tensor) else
+                 fn(a) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def batch_of(args, bsz: int) -> tuple:
+    """One call's inputs (batch 1) repeated to batch bsz along their first
+    axis."""
+    return map_inputs(args, lambda t: t.repeat(bsz, *([1] * (t.dim() - 1))))
+
+
+def time_band(name: str, args, tag: str) -> None:
+    """regroup (exact against its plain version) or scatter_softmax_sum
+    (softmax_agreement) at one shape, timed under cuda_ms and alone beside
+    its plain version and its bound; prints one [kernels] line."""
+    from ssf_slam_tpu_torch.ops import banded
+
+    kernel, plain = getattr(banded, name), getattr(banded, name + "_plain")
+    got = kernel(*args)
+    if name == "regroup":
+        idx, feats, plan, params = args
+        check(torch.equal(got, plain(*args)), "kernels",
+              f"regroup {tag} differs from plain")
+        b, n, k = idx.shape
+        m, c = feats.shape[1:]
+        es, err = feats.element_size(), 0.0
+        shape = f"B={b} [{n},{k}]x[{m},{c}]"
+        bound_ms, bound_by = bound(b * (n * k * 4 + m * c * es
+                                        + n * k * c * es), 0)
+    else:
+        idx, vals, w_shift, plan, params, n_out = args
+        ok, err = softmax_agreement(got, *args)
+        check(ok, "kernels", f"scatter_softmax_sum {tag} differs by {err}")
+        b, n, k, c = vals.shape
+        es = vals.element_size()
+        shape = f"B={b} N={n} K={k} C={c} -> {n_out}"
+        bound_ms, bound_by = bound(
+            b * (n * k * 4 + n * k * c * es + n * k * 4 + n_out * (c + 1) * 4),
+            b * n * k * (c + 1) * 3)
+    dt = str(args[1].dtype).split(".")[-1]
+    ms = cuda_ms(lambda: kernel(*args))
+    alone = queued_ms(lambda: kernel(*args))
+    plain_ms = cuda_ms(lambda: plain(*args))
+    say("kernels", f"{name} {tag} {shape} {dt}: kernel {ms:.4f} ms, alone "
+        f"{alone:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), share alone {bound_ms / alone:.3f}; max_abs_err "
+        f"{err:.3g}")
 
 
 @contextlib.contextmanager
@@ -776,35 +923,50 @@ def spy_scatter(store: dict):
         banded.scatter_add = kernel
 
 
-def time_train_scatters(shapes: dict, label: str) -> None:
+def time_train_scatters(shapes: dict, label: str, vecs: bool = False) -> None:
     """scatter_add at every shape of a train step's segment sums (from
-    spy_scatter), and their sum per step, alone, beside the bound."""
+    spy_scatter), and their sum per step, alone, beside the bound (and,
+    with ``vecs``, with each measurement build of the value-load width)."""
     total = bound_total = 0.0
+    total_vec = dict.fromkeys(SCATTER_VECS, 0.0) if vecs else {}
     for key, (args, calls) in shapes.items():
-        alone, bound_ms = time_scatter(f"{label} x{calls}", *args)
+        alone, bound_ms, by_vec = time_scatter(f"{label} x{calls}", *args,
+                                               vecs=vecs)
         total += calls * alone
         bound_total += calls * bound_ms
+        for vec, t in by_vec.items():
+            total_vec[vec] += calls * t
     calls = sum(c for _, c in shapes.values())
     say("train", f"scatter_add, {label} step: {calls} segment sums over "
         f"{len(shapes)} shapes, {total:.4f} ms per step "
-        f"alone, bound {bound_total:.4f} ms, share {bound_total / total:.3f}")
+        f"alone, bound {bound_total:.4f} ms, share {bound_total / total:.3f}"
+        + "".join(f"; VEC={v} {t:.4f} ms" for v, t in total_vec.items()))
 
 
 def phase_shapes(frames, dev) -> None:
     """knn_group and knn_idw at every distinct shape of the main path's
     scan, batch 1; at the level-0 shapes also at batch 4 (the training
     step's) and cold. Each exact against its plain version at every split
-    S; times at each S. Then scatter_add at the level-0 shape, batch 1 and
-    4, float32 and bf16 values."""
+    S; times at each S. regroup (exact) and scatter_softmax_sum
+    (softmax_agreement) at every distinct shape of the scan, batch 1 and
+    4. Then scatter_add at the level-0 shape, batch 1 and 4, float32 and
+    bf16 values."""
     from ssf_slam_tpu_torch.engine.fused import sequence_box, stack_fused_scans
     from ssf_slam_tpu_torch.ops import banded
     from ssf_slam_tpu_torch.ops import neighbors as nb
 
     for name, shapes in main_path_calls(frames, dev).items():
         for key, (args, calls) in sorted(shapes.items()):
-            layer = SPLIT_LAYERS[name].get((key[1], key[2], key[3]), "?")
-            time_split(name, args,
-                       f"{layer} ({calls} calls in the 2-scan run)")
+            tag = f"({calls} calls in the 2-scan run)"
+            if name in SPLIT_LAYERS:
+                layer = SPLIT_LAYERS[name].get((key[1], key[2], key[3]), "?")
+                time_split(name, args, f"{layer} {tag}")
+                continue
+            # regroup and scatter_softmax_sum at batch 1 and, on the
+            # scan's inputs four times over, at the train step's batch 4
+            layer = BAND_LAYERS.get(key[1], "?")
+            for inputs in (args, batch_of(args, TRAIN_BATCH)):
+                time_band(name, inputs, f"{layer} {tag}")
     # level 0 at batch 1 and 4, warm and cold: frames 2i -> 2i + 1, each
     # sorted under the sequence box as sorted_pair sorts frames 0 and 1
     scans = stack_fused_scans(frames, N_POINTS)
@@ -1251,6 +1413,62 @@ def phase_profile(frames, dev, host_ms_per_scan: float, out_dir: str,
 
 
 # ---------------------------------------------------------------------------
+# loop closure: tests/test_torch_slam.py's out-and-back circuit on the card
+# ---------------------------------------------------------------------------
+
+
+LOOP_FIXTURE = os.path.join(FIXTURES, "ssf_slam_small_ref.npz")
+# the circuit's gates, as tests/test_torch_slam.py::LOOP_STEP scales them
+LOOP_MAPPING = dict(max_keyframes=96, loop_search_radius=8.0,
+                    loop_time_gap=5.0, loop_skip_after_close=10,
+                    submap_points=4096)
+# pose_t and odom_t against the JAX run of the circuit (fixture keys
+# loop/*), in metres: the CPU test's tolerance (test_torch_slam.py::
+# test_loop_closure_full_engine_matches_jax); the card has read 1.56e-4 m
+LOOP_TOL = 1e-3
+
+
+def phase_loop(dev) -> None:
+    """The SSF run_sequence with a provided flow (ground truth x 1.03, an
+    odometry drift) and the ground-truth static mask over 72 frames of the
+    out-and-back circuit (1024 points): loop closure, ICP and the pose
+    graph on the card, against the JAX fixture: n_loops equal and > 0,
+    is_keyframe equal, pose_t and odom_t within LOOP_TOL."""
+    from ssf_slam_tpu_torch import config as tc
+    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
+    from ssf_slam_tpu_torch.engine.pipeline import run_sequence
+
+    frames = generate_sequence(n_frames=72, n_points=1024, seed=21,
+                               noise=0.004, n_moving=0, trajectory="loop")
+    for f in frames:
+        f["gt"] = f["gt"] * 1.03
+        f["static_mask"] = f["s_fg_mask"] < 0.5
+    cfg = tc.PipelineConfig(variant=tc.Variant.SSF,
+                            lidar=tc.LidarConfig(max_points=1024),
+                            features=tc.FeatureConfig(),
+                            mapping=tc.MappingConfig(**LOOP_MAPPING))
+    with np.load(LOOP_FIXTURE) as z:
+        want = {k[len("loop/"):]: z[k] for k in z.files
+                if k.startswith("loop/")}
+    t0 = time.perf_counter()
+    state, got = run_sequence(frames, cfg, device=dev)
+    dt = time.perf_counter() - t0
+    n_loops, n_want = int(state.map_state.n_loops), int(want["n_loops"])
+    dpt = float(np.abs(got["pose_t"] - want["pose_t"]).max())
+    dot = float(np.abs(got["odom_t"] - want["odom_t"]).max())
+    kf = int((got["is_keyframe"] != want["is_keyframe"]).sum())
+    say("loop", f"72-frame circuit, 1024 points, on {dev}: {n_loops} loop "
+        f"closures (JAX {n_want}), max |d pose_t| {dpt:.3g} m, odom_t "
+        f"{dot:.3g} m, is_keyframe differs on {kf} frames; {dt:.1f} s")
+    check(np.isfinite(got["pose_t"]).all(), "loop", "non-finite pose_t")
+    check(n_want > 0 and n_loops == n_want, "loop",
+          f"{n_loops} loop closures, JAX {n_want}")
+    check(kf == 0, "loop", f"is_keyframe differs on {kf} frames")
+    check(dpt <= LOOP_TOL, "loop", f"pose_t differs by {dpt} m")
+    check(dot <= LOOP_TOL, "loop", f"odom_t differs by {dot} m")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training
 # ---------------------------------------------------------------------------
 
@@ -1446,7 +1664,7 @@ def phase_train(dev, profile_dir: str | None = None) -> dict:
           f"differs by {err[order[0]]:.2e} of its norm between the kernels"
           f" and the plain versions")
     # the segment sums of the bf16 and the f32 step, shape by shape
-    time_train_scatters(shapes_bf16, "bf16")
+    time_train_scatters(shapes_bf16, "bf16", vecs=True)
     time_train_scatters(shapes_f32, "f32")
     del shapes_bf16, shapes_f32
     phase_train_parity(dev, loss_cfg)
@@ -1578,6 +1796,7 @@ def main() -> int:
         say("profile", f"device time per scan: fuse_attention off "
             f"{device[False]:.3f} ms, on {device[True]:.3f} ms")
     launches_entry = phase_entry(frames, dev)
+    phase_loop(dev)
     launches_train = phase_train(dev, profile_dir)
     kernels = []
     for name, r in records.items():

@@ -92,7 +92,13 @@ def solve_pose_graph(q: Tensor, t: Tensor, active: Tensor,
     for _ in range(iters):
         qa, ta, qb, tb = q[fa], t[fa], q[fb], t[fb]
         r = between_residual(qa, ta, qb, tb, mq, mt)  # [F, 6]
-        ja, jb = _factor_jac(zero6, zero6, qa, ta, qb, tb, mq, mt)
+        # torch.func's forward mode takes no inference tensors and, in
+        # PyTorch 2.11, has no batching rule for _make_dual under
+        # inference_mode (the sequence runners' mode): linearise on normal
+        # copies outside it
+        with torch.inference_mode(False):
+            ja, jb = _factor_jac(*(x.clone() for x in (
+                zero6, zero6, qa, ta, qb, tb, mq, mt)))
         # (some of torch's forward-mode formulas return float64 tangents)
         ja = torch.where(on, ja.to(dt), 0.0)
         jb = torch.where(on, jb.to(dt), 0.0)

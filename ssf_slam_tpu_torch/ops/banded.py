@@ -221,13 +221,28 @@ def scatter_softmax_sum_plain(idx, vals, w_shift, plan, params, n_out):
     aug = torch.cat([vals.float() * e[..., None], e[..., None]], dim=-1)
     if vals.dtype == torch.bfloat16:  # the TPU kernel's bf16 operands
         aug = aug.to(torch.bfloat16).float()
-    aug = aug * _in_band(idx, plan[0], params)[..., None]
+    keep = _in_band(idx, plan[0], params) & (idx < n_out)
+    aug = aug * keep[..., None]
+    rows = torch.where(keep, idx.long(), 0)
     out = torch.zeros(bsz, n_out, c + 1, dtype=torch.float32,
                       device=vals.device)
     for b in range(bsz):
-        out[b].index_add_(0, idx[b].reshape(-1).long(),
-                          aug[b].reshape(-1, c + 1))
+        out[b].index_add_(0, rows[b].reshape(-1), aug[b].reshape(-1, c + 1))
     return out
+
+
+def scatter_softmax_sum_slack(idx, vals, w_shift, plan, params, n_out):
+    """scatter_add_slack for the softmax sum's terms [rnd(v e), rnd(e)]:
+    2 (n - 1) 2^-24 sum |term| for an output element of n terms, float64
+    [B, n_out, C + 1]. The kernel's atomics sum in an order that changes
+    from run to run."""
+    mag = scatter_softmax_sum_plain(idx, vals.abs(), w_shift, plan, params,
+                                    n_out)
+    count = scatter_add_plain(idx, torch.ones_like(vals[..., :1],
+                                                   dtype=torch.float32),
+                              plan, params, n_out)
+    return (2.0 * (count.double() - 1.0).clamp(min=0.0) * 2.0 ** -24
+            * mag.double())
 
 
 # ---------------------------------------------------------------------------
@@ -434,7 +449,9 @@ def scatter_add(idx, vals, plan, params, n_out):
 def scatter_softmax_sum(idx, vals, w_shift, plan, params, n_out):
     """Banded scatter of [vals * e^w, e^w] (banded.py::
     banded_scatter_softmax_sum) -> f32 [B, n_out, C + 1]; ``w_shift`` is
-    already max-shifted, the caller divides by the last column."""
+    already max-shifted, the caller divides by the last column. Entries
+    whose idx lies outside its tile's band, or at or past n_out, add
+    nothing."""
     if not _on_cuda(idx, vals, w_shift, plan[0]):
         return scatter_softmax_sum_plain(idx, vals, w_shift, plan, params,
                                          n_out)

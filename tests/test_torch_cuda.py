@@ -28,6 +28,10 @@ plans that overlap unevenly, leave band blocks unreached or put every tile
 on one band, with entries out of band and n_out below M, within the same
 tolerance beyond the rounding bound of two float32 sums in different
 orders (banded.scatter_add_slack: sums of up to ~80 terms cancel there);
+regroup (exact) and scatter_softmax_sum (within the same tolerance beyond
+banded.scatter_softmax_sum_slack) over the same plans, batches and band
+blocks at C = 35, 64, 131, with feats or values at an aligned address and
+one element past it (so that the kernels' narrower units and loads run);
 attention ([2, 512, 16, 64]): float32 within 1e-5, bf16 within one bf16
 step on 99.99 % and two steps of (|value| + rms) everywhere, and its
 gradient equal to attention_xla's. cost_attention (patches from a seed,
@@ -423,6 +427,77 @@ def test_cuda_scatter_add_plans_match_plain(cuda_dev, dtype, params, bsz, c,
     # change from run to run: within 1e-6 + 1e-5 |want| beyond the rounding
     # bound of the two sums
     slack = banded.scatter_add_slack(idx, vals, plan, params, n_out)
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= 1e-6 + 1e-5 * want.abs().double() + slack).all()), \
+        f"max error {err.max().item():.3g}"
+
+
+def _misaligned(t):
+    """A contiguous copy of t that starts one element past its
+    allocation's start, so that no vector load of its rows is aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("kind", SCATTER_KINDS)
+@pytest.mark.parametrize("c", [35, 64, 131])
+@pytest.mark.parametrize("bsz", [1, 4])
+@pytest.mark.parametrize("params", SPLIT_PARAMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_regroup_plans_match_plain(cuda_dev, dtype, params, bsz, c,
+                                        kind, offset):
+    """regroup equals regroup_plain bit for bit: 16-byte units where C and
+    the pointers allow, narrower units for odd row widths (C = 35, 131) and
+    for feats one element off its allocation's alignment (offset 1)."""
+    idx, plan, _ = _scatter_plan(kind, bsz, params)
+    m = 2048 if params[1] == 256 else 512
+    idx = idx % m  # rows of feats (the uneven plan's bands reach past m)
+    feats = torch.from_numpy(np.random.default_rng(c).normal(
+        size=(bsz, m, c)).astype(np.float32)).cuda().to(getattr(torch, dtype))
+    if offset:
+        feats = _misaligned(feats)
+    before = banded.LAUNCHES["regroup"]
+    got = banded.regroup(idx, feats, plan, params)
+    assert banded.LAUNCHES["regroup"] == before + 1
+    want = banded.regroup_plain(idx, feats, plan, params)
+    assert got.dtype == feats.dtype and torch.equal(got, want)
+    if kind == "out_of_band":
+        assert bool((got[:, :256:37, 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("kind", SCATTER_KINDS)
+@pytest.mark.parametrize("c", [35, 64, 131])
+@pytest.mark.parametrize("bsz", [1, 4])
+@pytest.mark.parametrize("params", SPLIT_PARAMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_scatter_softmax_sum_plans_match_plain(cuda_dev, dtype, params,
+                                                    bsz, c, kind, offset):
+    """scatter_softmax_sum (scatter_add's tile-band body with the e column)
+    against its plain version over scatter_add's plans, with vector loads
+    (C = 64) and without (C = 35, 131, or values one element off their
+    allocation's alignment): within 1e-6 + 1e-5 |want| beyond the rounding
+    bound of two float32 sums in two orders, as scatter_add."""
+    idx, plan, n_out = _scatter_plan(kind, bsz, params)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    vals = torch.randn(bsz, 1024, K, c, device="cuda", generator=gen)
+    vals = vals.to(getattr(torch, dtype))
+    if offset:
+        vals = _misaligned(vals)
+    w = torch.randn(bsz, 1024, K, device="cuda", generator=gen)
+    w = (w - w.max()).contiguous()
+    before = banded.LAUNCHES["scatter_softmax_sum"]
+    got = banded.scatter_softmax_sum(idx, vals, w, plan, params, n_out)
+    assert banded.LAUNCHES["scatter_softmax_sum"] == before + 1
+    want = banded.scatter_softmax_sum_plain(idx, vals, w, plan, params,
+                                            n_out)
+    slack = banded.scatter_softmax_sum_slack(idx, vals, w, plan, params,
+                                             n_out)
     err = (got.double() - want.double()).abs()
     assert bool((err <= 1e-6 + 1e-5 * want.abs().double() + slack).all()), \
         f"max error {err.max().item():.3g}"
