@@ -13,12 +13,11 @@ run in turn, OLD, NEW, NEW, OLD (NEW defaults to this checkout); each
 imports the port (``ssf_slam_tpu_torch``) of its checkout, builds that
 checkout's kernels there, and runs the kernels asked for on
 chip_smoke.py's inputs: bench frames Morton-sorted under the sequence
-box, at batch 1 and, for knn_group, knn_idw, scatter_add, regroup and
-scatter_softmax_sum, batch 4 (frame pairs (0, 1), (2, 3), (4, 5), (6,
-7)):
+box, at batch 1 and 4 (frame pairs (0, 1), (2, 3), (4, 5), (6, 7)):
 
 - knn_group: 8192 <- 8192, k = 16, C = 99 f32; knn_idw: 8192 <- 2048,
-  k = 7, C = 132 bf16; knn and knn_group2 at knn_group's shape;
+  k = 7, C = 132 bf16; knn and knn_group2 at knn_group's shape, at batch
+  1 and 4 (knn_group2 also with bf16 feats);
 - cost_attention: the inputs of its two launches a scan (phase 2's
   cost_attention_levels: flow0_r at 8192 points, flow1_r at 2048, with the
   folded weightnet of the committed weights), bf16;
@@ -164,17 +163,19 @@ def child(root: str, kernels: list[str], dev: str = "cuda") -> dict:
         if "knn_group" in kernels:
             take(f"knn_group B={bsz} 8192<-8192 k=16 C=99 f32",
                  lambda: banded.knn_group(q, p, feats, 16, plan, params))
-        if bsz == 1 and "knn" in kernels:
-            take("knn B=1 8192<-8192 k=16",
+        if "knn" in kernels:
+            take(f"knn B={bsz} 8192<-8192 k=16",
                  lambda: banded.knn(q, p, 16, plan, params))
-        if bsz == 1 and "knn_group2" in kernels:
+        if "knn_group2" in kernels:
             qb = (q + 0.05 * torch.randn(q.shape, generator=gen,
                                          device=dev)).contiguous()
             pb = (p + 0.05 * torch.randn(p.shape, generator=gen,
                                          device=dev)).contiguous()
-            take("knn_group2 B=1 2x 8192<-8192 k=16 C=99 f32",
-                 lambda: banded.knn_group2(q, qb, p, pb, feats, 16, plan,
-                                           params))
+            for f in (feats, feats.to(torch.bfloat16)):
+                dt = str(f.dtype).split(".")[-1]
+                take(f"knn_group2 B={bsz} 2x 8192<-8192 k=16 C=99 {dt}",
+                     lambda f=f: banded.knn_group2(q, qb, p, pb, f, 16, plan,
+                                                   params))
         if "knn_idw" in kernels:
             iparams = nb.band_params(N_POINTS, sparse.shape[1], 7)
             iplan = nb.make_plan(q, sparse, iparams, 64.0, box)

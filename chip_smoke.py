@@ -9,13 +9,13 @@ printing its own line and failing loudly:
 
 1. build: compile every CUDA source of the port with nvcc (all at once,
    beside the measurement builds: band_knn.cu with the split S fixed at 8,
-   16 and 32, cost_attention.cu without its recheck, band_scatter.cu with
-   the scatters' value loads fixed at 1 and 4 elements, where the shipped
+   16 and 32, cost_attention.cu without its recheck, band_scatter.cu with the
+   scatters' value loads fixed at 1 and 4 elements, where the shipped
    library takes 2), check in nvcc's -Xptxas -v report (kept beside each
-   library) that every knn_group / knn_idw, bf16 cost_attention, scatter
-   and regroup instance has a 0-byte stack frame and no spills (printing
-   the shipped libraries' lines) and print the card's name and power
-   limit;
+   library) that every kernel of the kNN library, and every bf16
+   cost_attention, scatter and regroup instance, has a 0-byte stack frame
+   and no spills (printing the shipped libraries' lines) and print the
+   card's name and power limit;
 2. kernels: each of the nine kernels at its largest main-path shape, on
    Morton-sorted clouds of the bench sequence (the cost attention on the
    level-0 cost volume's own inputs, with the folded weightnet of the
@@ -35,7 +35,9 @@ printing its own line and failing loudly:
    above; float32 to 1e-5 relative) with the split S (lanes per query) the
    shipped library picks and with each measurement build's; timed as above
    and, to compare the splits, alone (queued behind a device-side sleep, so
-   that no host work is timed) with each. cost_attention at both launches
+   that no host work is timed) with each; knn and knn_group2 (f32 and
+   bf16 feats) the same way at the level-0 shape, batch 1 and 4, exact,
+   with knn's time beside knn_group's. cost_attention at both launches
    of a scan (8192 and 2048 points) and scatter_add at the level-0 shape,
    batch 1 and 4, float32 and bf16 values, are timed alone too, the latter
    with its device-memory atomics against one an entry and channel;
@@ -249,6 +251,7 @@ def cold_ms(fn, iters: int = 10) -> float:
     device works (here on the write), so its work counts only where it
     outlasts that."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()  # untimed: the allocator's blocks for the outputs beside flush
     pairs = []
     torch.cuda.synchronize()
     for _ in range(iters):
@@ -287,6 +290,21 @@ def group_bound(b, n, m, k, c, esize, wb) -> tuple[float, str]:
                       + n * k * c * esize), b * n * wb * 8)
 
 
+def knn_bound(b, n, m, k, wb) -> tuple[float, str]:
+    """knn's bound: clouds read and sqdist + idx written once; 8 operations
+    per band candidate (the selection's compares are not counted)."""
+    return bound(b * ((n + m) * 3 * 4 + n * k * (2 * 4)), b * n * wb * 8)
+
+
+def group2_bound(b, n, m, k, c, esize, wb) -> tuple[float, str]:
+    """knn_group2's bound: both searches' clouds, the shared feats, both
+    sqdist + idx and both grouped tensors moved once; 8 operations per band
+    candidate of each search."""
+    return bound(b * (2 * (n + m) * 3 * 4 + m * c * esize
+                      + 2 * (n * k * (2 * 4) + n * k * c * esize)),
+                 b * 2 * n * wb * 8)
+
+
 def idw_bound(b, n, m, k, c, esize, wb) -> tuple[float, str]:
     """knn_idw's bound: clouds, feats, the [N, C] output and sqdist + idx
     moved once; 8 operations per band candidate, 2 per mixed element."""
@@ -300,7 +318,7 @@ def idw_bound(b, n, m, k, c, esize, wb) -> tuple[float, str]:
 
 
 # lanes per query that the measurement builds of band_knn.cu fix for
-# knn_group and knn_idw (the shipped library picks S by query count)
+# every kNN kernel (the shipped library picks S by query count)
 SPLITS = (8, 16, 32)
 SPLIT_BUILDS = tuple(("ssf_band_knn", (f"SSF_KNN_SPLIT={s}",))
                      for s in SPLITS)
@@ -316,14 +334,15 @@ VEC_BUILDS = tuple(("ssf_band_scatter", (f"SSF_SCATTER_VEC={v}",))
                    for v in SCATTER_VECS)
 MEASUREMENT_BUILDS = SPLIT_BUILDS + (RECHECK_BUILD,) + VEC_BUILDS
 NO_FRAME = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
-# the kernels held to NO_FRAME in each library's report, and how many
-# instances each library has: knn_group / knn_idw (K 3, 5, 7, 8, 16, 32 x
-# two element types x two kernels, and x S 8, 16, 32 in the shipped
-# library), the bf16 cost attention ((KP 16 x CP 32, 64, 128) and (KP 32
-# x CP 128), x C2P 16, 32, 64, 128), the scatters (two element types x
-# scatter-add and softmax-sum x VEC 1 and the shipped VEC) and regroup
-# (units of 16, 8, 4 and 2 bytes)
-FRAME_CHECKS = {"ssf_band_knn": (("knn_group_kernel", "knn_idw_kernel"), 72),
+# the kernels held to NO_FRAME in each library's report (None: every entry
+# of the report), and how many instances each library has: the kNN
+# library's two kernels, knn_group_kernel (knn, knn_group, knn_group2) and
+# knn_idw_kernel (K 3, 5, 7, 8, 16, 32 x two element types x two kernels,
+# and x S 8, 16, 32 in the shipped library), the bf16 cost attention ((KP
+# 16 x CP 32, 64, 128) and (KP 32 x CP 128), x C2P 16, 32, 64, 128), the
+# scatters (two element types x scatter-add and softmax-sum x VEC 1 and the
+# shipped VEC) and regroup (units of 16, 8, 4 and 2 bytes)
+FRAME_CHECKS = {"ssf_band_knn": (None, 72),
                 "ssf_cost_attention": (("cost_attention_kernel",), 16),
                 "ssf_band_scatter": (("scatter_kernel", "regroup_kernel"),
                                      12)}
@@ -334,13 +353,13 @@ CHECKED_BUILDS = {**{b: 24 for b in SPLIT_BUILDS}, VEC_BUILDS[0]: 8,
 
 
 def check_frames(label: str, log: str, kernels) -> list[str]:
-    """Checks that every entry of the named kernels in an ``nvcc -Xptxas
-    -v`` report has a 0-byte stack frame and no spills; returns the
-    entries' lines."""
+    """Checks that every entry of the named kernels (None: every entry) in
+    an ``nvcc -Xptxas -v`` report has a 0-byte stack frame and no spills;
+    returns the entries' lines."""
     lines, out = log.splitlines(), []
     for i, line in enumerate(lines):
         m = re.search(r"Function properties for (\S+)", line)
-        if m and any(k in m.group(1) for k in kernels):
+        if m and (kernels is None or any(k in m.group(1) for k in kernels)):
             frame = lines[i + 1].strip() if i + 1 < len(lines) else ""
             check(frame == NO_FRAME, "build",
                   f"{label}: {m.group(1)}: {frame}")
@@ -362,15 +381,16 @@ def phase_build() -> str:
         entries = check_frames(name + "".join(f" -D{d}" for d in defines),
                                cuda_build.ptxas_report(name, defines),
                                kernels)
+        what = "kernel" if kernels is None else " / ".join(kernels)
         want = CHECKED_BUILDS[(name, defines)] if defines else count
         check(len(entries) == want, "build", f"{name} {defines}: "
-              f"{len(entries)} {' / '.join(kernels)} entries, not {want}")
+              f"{len(entries)} {what} entries, not {want}")
         if not defines:
             for line in entries:
                 say("build", f"{name}: {line}")
         else:
-            say("build", f"{name} -D{defines[0]}: {len(entries)} "
-                f"{' / '.join(kernels)} entries, each {NO_FRAME}")
+            say("build", f"{name} -D{defines[0]}: {len(entries)} {what} "
+                f"entries, each {NO_FRAME}")
     # the build without the recheck is timed only, not held to NO_FRAME
     report = cuda_build.ptxas_report(*RECHECK_BUILD).splitlines()
     for i, line in enumerate(report):
@@ -517,7 +537,7 @@ def phase_kernels(frames, dev) -> dict:
         plain_ms=cuda_ms(lambda: banded.knn_plain(pc1, pc2, k, plan_l0,
                                                   params_l0)),
         library_ms=None,  # no one call computes a banded top-k
-        bound=bound((n + m) * 3 * f32 + n * k * (2 * 4), n * wb * 8))
+        bound=knn_bound(1, n, m, k, wb))
 
     # knn_group2: the cost volume's twin searches, query xyz1 + coarse
     # flow and xyz1, targets xyz2 and a warped copy of it, feats
@@ -538,9 +558,7 @@ def phase_kernels(frames, dev) -> dict:
         plain_ms=cuda_ms(lambda: banded.knn_group2_plain(
             pc1, qb, pc2, pb, feats, k, plan_l0, params_l0)),
         library_ms=None,
-        bound=bound(2 * (n + m) * 3 * f32 + m * c * f32
-                    + 2 * (n * k * (2 * 4) + n * k * c * f32),
-                    2 * n * wb * 8))
+        bound=group2_bound(1, n, m, k, c, f32, wb))
 
     # scatter_add: the backward of the level-0 cost volume's grouping, the
     # f32 cotangent [8192, 16, 99] summed into 8192 rows
@@ -650,9 +668,9 @@ BAND_LAYERS = {8192: "flow0_r", 2048: "flow1_r"}
 
 
 def split_build(split: int):
-    """A context in which knn_group and knn_idw launch with S = split lanes
-    per query (a measurement build of band_knn.cu); 0: the shipped
-    library, whose S depends on the query count."""
+    """A context in which the kNN kernels launch with S = split lanes per
+    query (a measurement build of band_knn.cu); 0: the shipped library,
+    whose S depends on the query count."""
     from ssf_slam_tpu_torch.ops import cuda_build
 
     if split == 0:
@@ -701,51 +719,69 @@ def main_path_calls(frames, dev) -> dict:
     return seen
 
 
-def time_split(name: str, args, tag: str, cold: bool = False) -> None:
-    """One redesigned kernel at one shape: exact against its plain version
+def time_split(name: str, args, tag: str, cold: bool = False) -> float:
+    """One kNN kernel (knn, knn_group, knn_group2, knn_idw) at one shape:
+    exact against its plain version (knn_idw's output as phase 2 holds it)
     with the shipped library and with each measurement build of S. Timed
     with cuda_ms (the yardstick of every ms in phase 2; cold too if asked)
     beside the plain version and its bound, and alone (queued_ms) with the
-    shipped library and with each S. Prints one [kernels] line."""
+    shipped library and with each S. Prints one [kernels] line; returns the
+    shipped library's time alone."""
     from ssf_slam_tpu_torch.ops import banded
 
     kernel, plain = getattr(banded, name), getattr(banded, name + "_plain")
-    q, p, f, k, plan, params = args
+    if name == "knn":
+        (q, p, k, plan, params), f = args, None
+    elif name == "knn_group2":
+        q, _, p, _, f, k, plan, params = args
+    else:
+        q, p, f, k, plan, params = args
     want = plain(*args)
+
+    def held(build: str) -> None:
+        got = kernel(*args)
+        if name != "knn_idw":
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  "kernels", f"{name} {tag} {build}: differs from plain")
+            return
+        check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+              "kernels", f"{name} {tag} {build}: sqdist/idx differ")
+        # float32: the same operations (1e-5 relative as the tests); bf16:
+        # one rounding step, as for the level-0 record above
+        rel = 2.0 ** -8 if f.dtype == torch.bfloat16 else 1e-5
+        err = (got[0].float() - want[0].float()).abs()
+        check(bool((err <= 1e-6 + rel * want[0].float().abs()).all()),
+              "kernels", f"{name} {tag} {build}: out differs by {err.max()}")
+
     by_split = {}
     for split in SPLITS + (0,):
         with split_build(split):
-            got = kernel(*args)
-            if name == "knn_group":
-                check(all(torch.equal(g, w) for g, w in zip(got, want)),
-                      "kernels", f"{name} {tag} S={split}: differs from plain")
-            else:
-                check(torch.equal(got[1], want[1])
-                      and torch.equal(got[2], want[2]), "kernels",
-                      f"{name} {tag} S={split}: sqdist/idx differ")
-                # float32: the same operations (1e-5 relative as the
-                # tests); bf16: one rounding step, as for the level-0
-                # record above
-                rel = 2.0 ** -8 if f.dtype == torch.bfloat16 else 1e-5
-                err = (got[0].float() - want[0].float()).abs()
-                check(bool((err <= 1e-6 + rel * want[0].float().abs()).all()),
-                      "kernels",
-                      f"{name} {tag} S={split}: out differs by {err.max()}")
+            held(f"S={split}")
             by_split[split] = queued_ms(lambda: kernel(*args))
     b, n, _ = q.shape
-    m, c = p.shape[1], f.shape[-1]
-    alone, wb = by_split.pop(0), params[1] * params[2]
+    m, wb = p.shape[1], params[1] * params[2]
+    alone = by_split.pop(0)
     ms = cuda_ms(lambda: kernel(*args))
     plain_ms = cuda_ms(lambda: plain(*args))
-    bound_ms, bound_by = (group_bound if name == "knn_group" else idw_bound)(
-        b, n, m, k, c, f.element_size(), wb)
+    if f is None:
+        shape = f"B={b} {n}<-{m} k={k}"
+        bound_ms, bound_by = knn_bound(b, n, m, k, wb)
+    else:
+        c, es = f.shape[-1], f.element_size()
+        shape = (f"B={b} {n}<-{m} k={k} C={c} "
+                 f"{str(f.dtype).split('.')[-1]}")
+        bound_ms, bound_by = {"knn_group": group_bound,
+                              "knn_group2": group2_bound,
+                              "knn_idw": idw_bound}[name](b, n, m, k, c, es,
+                                                          wb)
     cold_note = f", cold {cold_ms(lambda: kernel(*args)):.4f}" if cold else ""
-    say("kernels", f"{name} {tag} B={b} {n}<-{m} k={k} C={c} "
-        f"{str(f.dtype).split('.')[-1]} wb={wb}: kernel {ms:.4f} ms"
+    say("kernels", f"{name} {tag} {shape} wb={wb}: kernel {ms:.4f} ms"
         f"{cold_note}; alone {alone:.4f} ms ("
         + ", ".join(f"S={sp} {t:.4f}" for sp, t in by_split.items())
         + f"), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}), share {bound_ms / ms:.3f}")
+        f"({bound_by}), share {bound_ms / ms:.3f}, alone "
+        f"{bound_ms / alone:.3f}")
+    return alone
 
 
 def scatter_atomics(idx, plan, params, n_out) -> tuple[int, int]:
@@ -984,8 +1020,24 @@ def phase_shapes(frames, dev) -> None:
                              device=dev).to(torch.bfloat16)
         params = nb.band_params(N_POINTS, N_POINTS, 16)
         plan = nb.make_plan(q, p, params, 64.0, box)
-        time_split("knn_group", (q, p, feats, 16, plan, params),
-                   "flow0_r level 0", cold=True)
+        grouped = time_split("knn_group", (q, p, feats, 16, plan, params),
+                             "flow0_r level 0", cold=True)
+        # the entry points on the same selection body: knn (its top-k
+        # alone) and knn_group2 (the twin searches: search b's clouds a
+        # warped copy of (q, p), under (q, p)'s plan), f32 and bf16 feats
+        alone = time_split("knn", (q, p, 16, plan, params), "level 0")
+        say("kernels", f"knn against knn_group at B={bsz} 8192<-8192 "
+            f"k=16 (C=99 f32), alone: {alone:.4f} ms against "
+            f"{grouped:.4f} ms; the grouping copy takes the other "
+            f"{grouped - alone:.4f} ms")
+        gen_b = torch.Generator(device=dev).manual_seed(3)
+        qb = (q + 0.05 * torch.randn(q.shape, generator=gen_b,
+                                     device=dev)).contiguous()
+        pb = (p + 0.05 * torch.randn(p.shape, generator=gen_b,
+                                     device=dev)).contiguous()
+        for f in (feats, feats.to(torch.bfloat16)):
+            time_split("knn_group2", (q, qb, p, pb, f, 16, plan, params),
+                       "level 0", cold=True)
         params = nb.band_params(N_POINTS, sparse.shape[1], 7)
         plan = nb.make_plan(q, sparse, params, 64.0, box)
         time_split("knn_idw", (q, sparse, fields, 7, plan, params),

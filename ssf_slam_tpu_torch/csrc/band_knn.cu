@@ -31,21 +31,23 @@
 //              out[n, :] = sum_j w_j * f32(feats[idx_j, :]) in slot order,
 //              accumulated in float32 and rounded once to the feats type
 //
-// knn_group and knn_idw (the main path's two): query-split selection.
-// What bounds them on the H100: knn_group at level 0 (8192 x 8192, k = 16,
-// C = 99 float32) writes a 52 MB grouped tensor and reads 3 MB, against 50
-// MFLOP of distances: its bound is that write, 0.0168 ms at 3.35 TB/s.
-// knn_idw writes only [N, C]; what bounds it is the selection, N * wb key
+// One design serves all four: the query-split selection. What bounds them
+// on the H100: knn_group at level 0 (8192 x 8192, k = 16, C = 99 float32)
+// writes a 52 MB grouped tensor and reads 3 MB, against 50 MFLOP of
+// distances: its bound is that write, 0.0168 ms at 3.35 TB/s. knn and
+// knn_idw write little; what bounds them is the selection, N * wb key
 // compares and the top-k insertions, which the device-memory and FLOP
 // bounds do not count. With one thread per query and one block per
-// 256-query tile, both ran on the latency of one thread's serial walk over
-// 768 candidates (its top-k in a local-memory array) on at most 32 of the
-// 132 SMs, and the copy kept one 4-byte load in flight per lane. So:
+// 256-query tile, the kernels ran on the latency of one thread's serial
+// walk over 768 candidates (its top-k in a local-memory array) on at most
+// 32 of the 132 SMs, and the copy kept one 4-byte load in flight per lane.
+// So:
 // - the CUDA block is decoupled from the band tile: a block of 256 threads
 //   takes Q = 256 / S queries of one tile and stages that tile's band
 //   (<= 1024 points, 12 KB) in shared memory itself; blocks of one tile
-//   re-read it from L2. The grid is (N / Q) x B, 512 blocks for knn_group
-//   at level 0 (S = 16; default_split chooses S from the query count);
+//   re-read it from L2. The grid is (N / Q) x B x searches, 512 blocks for
+//   knn_group at level 0 (S = 16; default_split chooses S from the query
+//   count);
 // - each query's band is split over S lanes: lane s scans positions
 //   p = s (mod S) and keeps its own K best keys in registers (K a
 //   compile-time capacity >= k, insertion by unrolled compare-and-swap, no
@@ -57,136 +59,28 @@
 //   band is split;
 // - the grouping is a flat copy: the block's Q * k output rows are one
 //   contiguous span, written in 16-byte vectors, each thread gathering 4
-//   (float32) or 8 (bf16) elements before its store;
+//   (float32) or 8 (bf16) elements before its store. knn launches the same
+//   kernel with no grouped output and stops after the selection;
+// - knn_group2's two searches are one launch of the same kernel: blockIdx.z
+//   picks the search, whose query, points and outputs lie a fixed number of
+//   bytes past search a's; both read the one b0, so search b's band is rows
+//   [b0[t] * wblk, + wb) of points_b. (One block running both searches of
+//   its queries back to back, so that the feats rows they share are read
+//   while still in L1, measured 1.06-1.15x slower on the H100: it keeps half
+//   as many blocks in flight, and feats stays in L2 either way);
 // - the IDW mix takes the block's Q output rows the same way, each thread's
 //   k gathers in flight before its slot-order sum. Every lane of a query sees
 //   the merged distances in slot order and sums the weights with the
 //   roundings above, so the output bits do not depend on S either.
-// knn and knn_group2 (entry points only) keep one thread per query and one
-// block per tile (band_topk, tile_topk), and one warp per grouped row.
+#include <type_traits>
+
 #include "banded_common.cuh"
 
-// k smallest packed keys of one query against the shared-memory band,
-// ascending in keys[0..k)
-__device__ __forceinline__ void band_topk(float qx, float qy, float qz,
-                                          const float* __restrict__ band,
-                                          int wb, int base, int n_valid,
-                                          int k, int* keys) {
-  for (int j = 0; j < k; ++j) keys[j] = 0x7FFFFFFF;
-  int worst = 0x7FFFFFFF;
-  for (int p = 0; p < wb; ++p) {
-    const float dx = __fsub_rn(qx, band[3 * p + 0]);
-    const float dy = __fsub_rn(qy, band[3 * p + 1]);
-    const float dz = __fsub_rn(qz, band[3 * p + 2]);
-    float d = __fmul_rn(dy, dy);
-    d = __fmaf_rn(dx, dx, d);
-    d = __fmaf_rn(dz, dz, d);
-    if (base + p >= n_valid) d = BIG_DIST;
-    const int key = (__float_as_int(d) & ~POS_MASK) | p;
-    if (key < worst) {
-      int j = k - 1;
-      while (j > 0 && keys[j - 1] > key) {
-        keys[j] = keys[j - 1];
-        --j;
-      }
-      keys[j] = key;
-      worst = keys[k - 1];
-    }
-  }
-}
-
-// Stage the band, run the top-k for this thread's query, write sqdist and
-// idx, and optionally park idx in shared memory. The
-// band rows come from b0 of this block's tile whatever the points array;
-// the caller __syncthreads() before reading `sidx` or restaging `band`.
-__device__ __forceinline__ void tile_topk(
-    const float* __restrict__ query, const float* __restrict__ points,
-    const int* __restrict__ b0, int N, int M, int k, int wblk, int n_blocks,
-    int n_valid, float* __restrict__ out_d, int* __restrict__ out_i,
-    float* band, int* sidx) {
-  const int wb = wblk * n_blocks;
-  const int b = blockIdx.y;
-  const int n_tiles = N / QUERY_TILE;
-  const int base = b0[b * n_tiles + blockIdx.x] * wblk;
-  const float* pts = points + ((size_t)b * M + base) * 3;
-  for (int i = threadIdx.x; i < wb * 3; i += blockDim.x) band[i] = pts[i];
-  __syncthreads();
-
-  const int n = blockIdx.x * QUERY_TILE + threadIdx.x;
-  const float* q = query + ((size_t)b * N + n) * 3;
-  int keys[MAX_K];
-  band_topk(q[0], q[1], q[2], band, wb, base, n_valid, k, keys);
-
-  const size_t o = ((size_t)b * N + n) * k;
-  const int nearest = keys[0] & POS_MASK;
-  for (int j = 0; j < k; ++j) {
-    const float d = __int_as_float(keys[j] & ~POS_MASK);
-    const int pos = d >= 0.5f * BIG_DIST ? nearest : (keys[j] & POS_MASK);
-    out_d[o + j] = d;
-    out_i[o + j] = base + pos;
-    if (sidx != nullptr) sidx[threadIdx.x * k + j] = base + pos;
-  }
-}
-
-__global__ void __launch_bounds__(QUERY_TILE)
-knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
-           const int* __restrict__ b0, int N, int M, int k, int wblk,
-           int n_blocks, int n_valid, float* __restrict__ out_d,
-           int* __restrict__ out_i) {
-  extern __shared__ float smem[];
-  tile_topk(query, points, b0, N, M, k, wblk, n_blocks, n_valid, out_d, out_i,
-            smem, nullptr);
-}
-
-// copy the rows named by sidx[0 .. QUERY_TILE * k) of feats into this
-// tile's grouped block: one warp per output row, lanes over channels
-template <typename T>
-__device__ __forceinline__ void tile_group(const T* __restrict__ feats,
-                                           const int* sidx, int N, int M,
-                                           int C, int k,
-                                           T* __restrict__ grouped) {
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const T* fb = feats + (size_t)b * M * C;
-  T* gb = grouped + ((size_t)b * N + (size_t)blockIdx.x * QUERY_TILE) * k * C;
-  for (int r = warp; r < QUERY_TILE * k; r += n_warps) {
-    const T* src = fb + (size_t)sidx[r] * C;
-    T* dst = gb + (size_t)r * C;
-    for (int c = lane; c < C; c += 32) dst[c] = src[c];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(QUERY_TILE)
-knn_group2_kernel(const float* __restrict__ query_a,
-                  const float* __restrict__ query_b,
-                  const float* __restrict__ points_a,
-                  const float* __restrict__ points_b,
-                  const T* __restrict__ feats, const int* __restrict__ b0,
-                  int N, int M, int C, int k, int wblk, int n_blocks,
-                  int n_valid, float* __restrict__ d_a, int* __restrict__ i_a,
-                  T* __restrict__ g_a, float* __restrict__ d_b,
-                  int* __restrict__ i_b, T* __restrict__ g_b) {
-  extern __shared__ float smem[];
-  float* band = smem;                                   // [wb * 3]
-  int* sidx_a = (int*)(band + 3 * wblk * n_blocks);     // [256 * k]
-  int* sidx_b = sidx_a + QUERY_TILE * k;                // [256 * k]
-  tile_topk(query_a, points_a, b0, N, M, k, wblk, n_blocks, n_valid, d_a, i_a,
-            band, sidx_a);
-  __syncthreads();  // every thread is done with points_a's band
-  tile_topk(query_b, points_b, b0, N, M, k, wblk, n_blocks, n_valid, d_b, i_b,
-            band, sidx_b);
-  __syncthreads();
-  tile_group(feats, sidx_a, N, M, C, k, g_a);
-  tile_group(feats, sidx_b, N, M, C, k, g_b);
-}
-
 // ---------------------------------------------------------------------------
-// knn_group and knn_idw: the query-split selection
+// the query-split selection
 // ---------------------------------------------------------------------------
 
-#define SPLIT_BLOCK 256  // threads of a knn_group / knn_idw block
+#define SPLIT_BLOCK 256  // threads of a block
 
 struct SplitArgs {
   const float* query;   // [B, N, 3]
@@ -197,8 +91,28 @@ struct SplitArgs {
   float eps2;           // knn_idw only
   float* out_d;         // [B, N, k]
   int* out_i;           // [B, N, k]
-  void* out;            // knn_group: grouped [B, N, k, C]; knn_idw: [B, N, C]
+  void* out;            // knn_group(2): grouped [B, N, k, C]; knn_idw:
+                        // [B, N, C]; knn: nullptr
 };
+
+// knn_group_kernel's searches: knn_group2 has 2, whose search b's query,
+// points, out_d, out_i and out lie these many bytes past search a's. Kept
+// out of SplitArgs: with these fields in its parameters knn_idw_kernel,
+// which never has a second search, ran 4-6 % slower on the H100.
+struct Twin {
+  int searches;
+  long long query, points, d, i, out;
+};
+
+// p advanced by z * step bytes: search z's array. Pointer arithmetic on
+// (const) char, not on an integer: through uintptr_t the kNN kernels ran
+// 7-10 % slower on the H100.
+template <typename P>
+__device__ __forceinline__ P* search_at(P* p, long long step, int z) {
+  using B = typename std::conditional<std::is_const<P>::value, const char,
+                                      char>::type;
+  return reinterpret_cast<P*>(reinterpret_cast<B*>(p) + z * step);
+}
 
 // the minimum of v over the S lanes of one query (S a power of two <= 32;
 // a query's lanes are consecutive and aligned in the warp)
@@ -214,25 +128,27 @@ __device__ __forceinline__ int group_min(int v) {
   }
 }
 
-// Stage this block's band, then select the k smallest keys of each of its
-// Q = SPLIT_BLOCK / S queries, S lanes to a query. On return (after a
-// __syncthreads) sidx[q * k + j] and sd[q * k + j] hold query q's slot j
-// (absolute row, truncated distance), and every lane holds in `wsum` its
-// query's IDW weight sum (when IDW is set). Returns the block's base row.
+// Stage this block's band of `points`, then select the k smallest keys of
+// each of its Q = SPLIT_BLOCK / S queries, S lanes to a query, into out_d
+// and out_i. On return (after a __syncthreads) sidx[q * k + j] and
+// sd[q * k + j] hold query q's slot j (absolute row, truncated distance),
+// and sw[q * k + j] its IDW weight (when IDW is set). Returns the block's
+// first query row.
 template <int K, int S, bool IDW>
-__device__ __forceinline__ int split_topk(const SplitArgs& a, float* band,
-                                          int* sidx, float* sd, float* sw) {
+__device__ __forceinline__ int split_topk(
+    const SplitArgs& a, const float* query, const float* points,
+    float* out_d, int* out_i, float* band, int* sidx, float* sd, float* sw) {
   constexpr int Q = SPLIT_BLOCK / S;
   const int wb = a.wblk * a.n_blocks, k = a.k;
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * Q;
   const int base = a.b0[b * (a.N / QUERY_TILE) + n0 / QUERY_TILE] * a.wblk;
-  const float* pts = a.points + ((size_t)b * a.M + base) * 3;
+  const float* pts = points + ((size_t)b * a.M + base) * 3;
   for (int i = threadIdx.x; i < wb * 3; i += SPLIT_BLOCK) band[i] = pts[i];
   __syncthreads();
 
   const int ql = threadIdx.x / S, s = threadIdx.x % S;
-  const float* q = a.query + ((size_t)b * a.N + n0 + ql) * 3;
+  const float* q = query + ((size_t)b * a.N + n0 + ql) * 3;
   const float qx = q[0], qy = q[1], qz = q[2];
   int keys[K];
 #pragma unroll
@@ -292,29 +208,35 @@ __device__ __forceinline__ int split_topk(const SplitArgs& a, float* band,
   // the block's Q * k distances and indices are one contiguous span
   const size_t o = ((size_t)b * a.N + n0) * k;
   for (int e = threadIdx.x; e < Q * k; e += SPLIT_BLOCK) {
-    a.out_d[o + e] = sd[e];
-    a.out_i[o + e] = sidx[e];
+    out_d[o + e] = sd[e];
+    out_i[o + e] = sidx[e];
   }
   return n0;
 }
 
-// E: the element's bits (uint32_t for float32, uint16_t for bf16): the
-// grouping is an exact copy
+// knn, knn_group and knn_group2: search blockIdx.z of this block's queries,
+// the selection and, unless a.out is null (knn), the grouping. E: the
+// element's bits (uint32_t for float32, uint16_t for bf16): the grouping is
+// an exact copy
 template <int K, int S, typename E>
 __global__ void __launch_bounds__(SPLIT_BLOCK)
-knn_group_kernel(const SplitArgs a) {
+knn_group_kernel(const SplitArgs a, const Twin t) {
   constexpr int Q = SPLIT_BLOCK / S;
   constexpr int VEC = 16 / sizeof(E);
   extern __shared__ float smem[];
-  const int k = a.k, C = a.C;
+  const int k = a.k, C = a.C, z = blockIdx.z;
   float* band = smem;                                   // [wb * 3]
   int* sidx = (int*)(band + 3 * a.wblk * a.n_blocks);   // [Q * k]
   float* sd = (float*)(sidx + Q * k);                   // [Q * k]
-  const int n0 = split_topk<K, S, false>(a, band, sidx, sd, nullptr);
+  const int n0 = split_topk<K, S, false>(
+      a, search_at(a.query, t.query, z), search_at(a.points, t.points, z),
+      search_at(a.out_d, t.d, z), search_at(a.out_i, t.i, z), band, sidx, sd,
+      nullptr);
+  if (a.out == nullptr) return;
 
   const int b = blockIdx.y;
   const E* fb = (const E*)a.feats + (size_t)b * a.M * C;
-  E* gb = (E*)a.out + ((size_t)b * a.N + n0) * k * C;
+  E* gb = search_at((E*)a.out, t.out, z) + ((size_t)b * a.N + n0) * k * C;
   const int n_el = Q * k * C;
   if ((reinterpret_cast<uintptr_t>(gb) & 15) == 0 && n_el % VEC == 0) {
 #pragma unroll 2
@@ -351,7 +273,8 @@ knn_idw_kernel(const SplitArgs a) {
   int* sidx = (int*)(band + 3 * a.wblk * a.n_blocks);   // [Q * k]
   float* sd = (float*)(sidx + Q * k);                   // [Q * k]
   float* sw = sd + Q * k;                               // [Q * k]
-  const int n0 = split_topk<K, S, true>(a, band, sidx, sd, sw);
+  const int n0 = split_topk<K, S, true>(a, a.query, a.points, a.out_d,
+                                         a.out_i, band, sidx, sd, sw);
 
   // output elements of the block's Q rows, one contiguous span
   const int b = blockIdx.y;
@@ -374,13 +297,14 @@ knn_idw_kernel(const SplitArgs a) {
 }
 
 // The fewest lanes per query (of 8, 16, 32) that still give the launch
-// 4,096 warps (knn_group) or 2,048 (knn_idw, whose merge rounds each
-// compute a weight in every lane): fewer lanes mean shorter merges, more
-// lanes more parallel work where the queries are few. Measured on the
-// H100 at the main path's shapes: 32 at 2,048 queries or fewer, 16
-// (knn_group) or 8 (knn_idw) at 8,192, 8 at 4 x 8,192. A measurement build
-// fixes S for every launch with -DSSF_KNN_SPLIT=8, 16 or 32; the outputs do
-// not depend on it.
+// 4,096 warps (knn, knn_group, knn_group2) or 2,048 (knn_idw, whose merge
+// rounds each compute a weight in every lane): fewer lanes mean shorter
+// merges, more lanes more parallel work where the queries are few. The
+// queries are the grid's, every search's: knn_group2 counts 2 B N.
+// Measured on the H100 at the main path's shapes: 32 at 2,048 queries or
+// fewer, 16 (knn_group) or 8 (knn_idw) at 8,192, 8 at 4 x 8,192. A
+// measurement build fixes S for every launch with -DSSF_KNN_SPLIT=8, 16 or
+// 32; the outputs do not depend on it.
 static int default_split(long queries, bool idw) {
   const long lanes = idw ? 65536 : 131072;
   for (int s = 8; s < 32; s *= 2)
@@ -388,28 +312,33 @@ static int default_split(long queries, bool idw) {
   return 32;
 }
 
+// one search: knn, knn_group, knn_idw
+static const Twin kOneSearch{1, 0, 0, 0, 0, 0};
+
 template <int K, int S, typename E, bool IDW>
-static int launch_split_ks(const SplitArgs& a, int B, cudaStream_t stream) {
+static int launch_split_ks(const SplitArgs& a, const Twin& t, int B,
+                           cudaStream_t stream) {
   constexpr int Q = SPLIT_BLOCK / S;
   const size_t smem = sizeof(float) * 3 * a.wblk * a.n_blocks +
                       sizeof(int) * Q * a.k * (IDW ? 3 : 2);
-  dim3 grid(a.N / Q, B);
+  dim3 grid(a.N / Q, B, t.searches);
   if constexpr (IDW)
     knn_idw_kernel<K, S, E><<<grid, SPLIT_BLOCK, smem, stream>>>(a);
   else
-    knn_group_kernel<K, S, E><<<grid, SPLIT_BLOCK, smem, stream>>>(a);
+    knn_group_kernel<K, S, E><<<grid, SPLIT_BLOCK, smem, stream>>>(a, t);
   return (int)cudaGetLastError();
 }
 
 template <int K, typename E, bool IDW>
-static int launch_split_k(const SplitArgs& a, int B, cudaStream_t stream) {
+static int launch_split_k(const SplitArgs& a, const Twin& t, int B,
+                          cudaStream_t stream) {
 #ifdef SSF_KNN_SPLIT
-  return launch_split_ks<K, SSF_KNN_SPLIT, E, IDW>(a, B, stream);
+  return launch_split_ks<K, SSF_KNN_SPLIT, E, IDW>(a, t, B, stream);
 #else
-  switch (default_split((long)B * a.N, IDW)) {
-    case 8: return launch_split_ks<K, 8, E, IDW>(a, B, stream);
-    case 16: return launch_split_ks<K, 16, E, IDW>(a, B, stream);
-    default: return launch_split_ks<K, 32, E, IDW>(a, B, stream);
+  switch (default_split((long)t.searches * B * a.N, IDW)) {
+    case 8: return launch_split_ks<K, 8, E, IDW>(a, t, B, stream);
+    case 16: return launch_split_ks<K, 16, E, IDW>(a, t, B, stream);
+    default: return launch_split_ks<K, 32, E, IDW>(a, t, B, stream);
   }
 #endif
 }
@@ -417,13 +346,14 @@ static int launch_split_k(const SplitArgs& a, int B, cudaStream_t stream) {
 // the smallest compiled capacity K >= k: 3, 5, 7 (the main path's IDW),
 // 8, 16 (its groupings) or 32 (MAX_K)
 template <typename E, bool IDW>
-static int launch_split(const SplitArgs& a, int B, cudaStream_t stream) {
-  if (a.k <= 3) return launch_split_k<3, E, IDW>(a, B, stream);
-  if (a.k <= 5) return launch_split_k<5, E, IDW>(a, B, stream);
-  if (a.k <= 7) return launch_split_k<7, E, IDW>(a, B, stream);
-  if (a.k <= 8) return launch_split_k<8, E, IDW>(a, B, stream);
-  if (a.k <= 16) return launch_split_k<16, E, IDW>(a, B, stream);
-  return launch_split_k<32, E, IDW>(a, B, stream);
+static int launch_split(const SplitArgs& a, const Twin& t, int B,
+                        cudaStream_t stream) {
+  if (a.k <= 3) return launch_split_k<3, E, IDW>(a, t, B, stream);
+  if (a.k <= 5) return launch_split_k<5, E, IDW>(a, t, B, stream);
+  if (a.k <= 7) return launch_split_k<7, E, IDW>(a, t, B, stream);
+  if (a.k <= 8) return launch_split_k<8, E, IDW>(a, t, B, stream);
+  if (a.k <= 16) return launch_split_k<16, E, IDW>(a, t, B, stream);
+  return launch_split_k<32, E, IDW>(a, t, B, stream);
 }
 
 static int check_shape(int N, int k, int wblk, int n_blocks) {
@@ -432,37 +362,9 @@ static int check_shape(int N, int k, int wblk, int n_blocks) {
   return 0;
 }
 
-static int launch_knn(const void* query, const void* points, const void* b0,
-                      int B, int N, int M, int k, int wblk, int n_blocks,
-                      int n_valid, void* out_d, void* out_i,
-                      cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 3 * wblk * n_blocks;
-  dim3 grid(N / QUERY_TILE, B);
-  knn_kernel<<<grid, QUERY_TILE, smem, stream>>>(
-      (const float*)query, (const float*)points, (const int*)b0, N, M, k,
-      wblk, n_blocks, n_valid, (float*)out_d, (int*)out_i);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_group2(const void* qa, const void* qb, const void* pa,
-                         const void* pb, const void* feats, const void* b0,
-                         int B, int N, int M, int C, int k, int wblk,
-                         int n_blocks, int n_valid, void* d_a, void* i_a,
-                         void* g_a, void* d_b, void* i_b, void* g_b,
-                         cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * 3 * wblk * n_blocks + sizeof(int) * 2 * QUERY_TILE * k;
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_group2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(N / QUERY_TILE, B);
-  knn_group2_kernel<T><<<grid, QUERY_TILE, smem, stream>>>(
-      (const float*)qa, (const float*)qb, (const float*)pa, (const float*)pb,
-      (const T*)feats, (const int*)b0, N, M, C, k, wblk, n_blocks, n_valid,
-      (float*)d_a, (int*)i_a, (T*)g_a, (float*)d_b, (int*)i_b, (T*)g_b);
-  return (int)cudaGetLastError();
+// bytes from a to b
+static long long gap(const void* a, const void* b) {
+  return (long long)((uintptr_t)b - (uintptr_t)a);
 }
 
 extern "C" {
@@ -479,25 +381,30 @@ int ssf_knn_group(const void* query, const void* points, const void* feats,
   const SplitArgs a{(const float*)query, (const float*)points, feats,
                     (const int*)b0, N, M, C, k, wblk, n_blocks, n_valid, 0.0f,
                     (float*)out_d, (int*)out_i, grouped};
-  if (feats_bf16)
-    return launch_split<uint16_t, false>(a, B, (cudaStream_t)stream);
-  return launch_split<uint32_t, false>(a, B, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (feats_bf16) return launch_split<uint16_t, false>(a, kOneSearch, B, s);
+  return launch_split<uint32_t, false>(a, kOneSearch, B, s);
 }
 
 // query [B, N, 3] f32, points [B, M, 3] f32, b0 [B, N / 256] i32
-// -> out_d [B, N, k] f32, out_i [B, N, k] i32. Returns a cudaError_t code.
+// -> out_d [B, N, k] f32, out_i [B, N, k] i32: knn_group's selection with
+// no grouping. Returns a cudaError_t code.
 int ssf_knn(const void* query, const void* points, const void* b0, int B,
             int N, int M, int k, int wblk, int n_blocks, int n_valid,
             void* out_d, void* out_i, void* stream) {
   int bad = check_shape(N, k, wblk, n_blocks);
   if (bad) return bad;
-  return launch_knn(query, points, b0, B, N, M, k, wblk, n_blocks, n_valid,
-                    out_d, out_i, (cudaStream_t)stream);
+  const SplitArgs a{(const float*)query, (const float*)points, nullptr,
+                    (const int*)b0, N, M, 0, k, wblk, n_blocks, n_valid, 0.0f,
+                    (float*)out_d, (int*)out_i, nullptr};
+  return launch_split<uint32_t, false>(a, kOneSearch, B,
+                                       (cudaStream_t)stream);
 }
 
 // query_a, query_b [B, N, 3] f32, points_a, points_b [B, M, 3] f32 (rows
 // aligned), feats [B, M, C], b0 [B, N / 256] i32 (the plan of query_a in
-// points_a) -> (d, i, grouped) of each search, as ssf_knn_group's
+// points_a) -> (d, i, grouped) of each search, as ssf_knn_group's; one
+// launch of both searches
 int ssf_knn_group2(const void* query_a, const void* query_b,
                    const void* points_a, const void* points_b,
                    const void* feats, const void* b0, int B, int N, int M,
@@ -506,15 +413,14 @@ int ssf_knn_group2(const void* query_a, const void* query_b,
                    void* i_b, void* g_b, void* stream) {
   int bad = check_shape(N, k, wblk, n_blocks);
   if (bad) return bad;
+  const SplitArgs a{(const float*)query_a, (const float*)points_a, feats,
+                    (const int*)b0, N, M, C, k, wblk, n_blocks, n_valid, 0.0f,
+                    (float*)d_a, (int*)i_a, g_a};
+  const Twin t{2, gap(query_a, query_b), gap(points_a, points_b),
+               gap(d_a, d_b), gap(i_a, i_b), gap(g_a, g_b)};
   cudaStream_t s = (cudaStream_t)stream;
-  if (feats_bf16)
-    return launch_group2<__nv_bfloat16>(query_a, query_b, points_a, points_b,
-                                        feats, b0, B, N, M, C, k, wblk,
-                                        n_blocks, n_valid, d_a, i_a, g_a, d_b,
-                                        i_b, g_b, s);
-  return launch_group2<float>(query_a, query_b, points_a, points_b, feats, b0,
-                              B, N, M, C, k, wblk, n_blocks, n_valid, d_a, i_a,
-                              g_a, d_b, i_b, g_b, s);
+  if (feats_bf16) return launch_split<uint16_t, false>(a, t, B, s);
+  return launch_split<uint32_t, false>(a, t, B, s);
 }
 
 // as ssf_knn_group, but out [B, N, C] = the IDW mix of the k neighbours'
@@ -528,9 +434,9 @@ int ssf_knn_idw(const void* query, const void* points, const void* feats,
   const SplitArgs a{(const float*)query, (const float*)points, feats,
                     (const int*)b0, N, M, C, k, wblk, n_blocks, n_valid, eps2,
                     (float*)out_d, (int*)out_i, out};
-  if (feats_bf16)
-    return launch_split<__nv_bfloat16, true>(a, B, (cudaStream_t)stream);
-  return launch_split<float, true>(a, B, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (feats_bf16) return launch_split<__nv_bfloat16, true>(a, kOneSearch, B, s);
+  return launch_split<float, true>(a, kOneSearch, B, s);
 }
 
 const char* ssf_error_string(int code) {

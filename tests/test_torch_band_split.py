@@ -1,5 +1,6 @@
 """The property the query-split band selection of ``csrc/band_knn.cu``
-(``knn_group_kernel``, ``knn_idw_kernel``) rests on, on the CPU.
+(``knn_group_kernel``, which serves knn, knn_group and knn_group2, and
+``knn_idw_kernel``) rests on, on the CPU.
 
 The kernels split each query's band over S lanes: lane s keeps the k best
 packed keys of band positions p = s (mod S), and k rounds of a minimum over
@@ -11,7 +12,10 @@ torch emulation of the split and the merge is held here, EXACTLY, to
 a cloud of duplicated points (equal distances, ties broken by position)
 and a cloud with padded rows past ``n_valid`` (1e10 keys told apart only by
 position; a band of 5 valid rows, so that k > 5 takes the nearest-index
-rule).
+rule). knn_group2's twin search is emulated the same way: search b's keys
+come from its own clouds (search a's, each point moved by a seeded 0.05 x
+normal) under search a's plan, and both merged lists, with the rows they
+group, are held EXACTLY to ``banded.knn_group2_plain``.
 """
 
 from __future__ import annotations
@@ -94,6 +98,16 @@ def _split_merge(keys: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return torch.stack(out, -1)
 
 
+def _unpack(merged: torch.Tensor, plan) -> tuple:
+    """(sqdist, idx int32) of merged packed keys, as the kernels write
+    them: overflow slots repeat the nearest position."""
+    d = (merged & ~banded._POS_MASK).view(torch.float32)
+    pos = merged & banded._POS_MASK
+    pos = torch.where(d >= banded._BIG * 0.5, pos[..., :1], pos)
+    base = torch.repeat_interleave(plan[0] * PARAMS[1], PARAMS[0], dim=1)
+    return d, (pos + base[..., None]).to(torch.int32)
+
+
 @pytest.mark.parametrize("kind", ["bench", "duplicated", "padded"])
 def test_band_keys_are_distinct(kind):
     q, p, plan = _clouds(kind)
@@ -106,15 +120,33 @@ def test_band_keys_are_distinct(kind):
 @pytest.mark.parametrize("kind", ["bench", "duplicated", "padded"])
 def test_split_merge_equals_knn_plain(kind, s, k):
     q, p, plan = _clouds(kind)
-    merged = _split_merge(_band_keys(q, p, plan), k, s)
-    d = (merged & ~banded._POS_MASK).view(torch.float32)
-    pos = merged & banded._POS_MASK
-    pos = torch.where(d >= banded._BIG * 0.5, pos[..., :1], pos)
-    base = torch.repeat_interleave(plan[0] * PARAMS[1], PARAMS[0], dim=1)
+    d, idx = _unpack(_split_merge(_band_keys(q, p, plan), k, s), plan)
     want_d, want_i = banded.knn_plain(q, p, k, plan, PARAMS)
     assert torch.equal(d, want_d)
-    assert torch.equal((pos + base[..., None]).to(torch.int32), want_i)
+    assert torch.equal(idx, want_i)
     if kind == "padded" and k > 5:  # slots past the 5 valid rows
         assert bool((want_d >= banded._BIG * 0.5).any())
     if kind == "duplicated" and k > 1:  # equal distances in one list
         assert bool((want_d[..., 1:] == want_d[..., :-1]).any())
+
+
+@pytest.mark.parametrize("k", [1, 16, 32])
+@pytest.mark.parametrize("s", [1, 8, 32])
+@pytest.mark.parametrize("kind", ["bench", "duplicated", "padded"])
+def test_twin_split_merge_equals_knn_group2_plain(kind, s, k):
+    qa, pa, plan = _clouds(kind)
+    rng = np.random.default_rng(11)
+    qb = qa + torch.from_numpy(
+        0.05 * rng.standard_normal(qa.shape).astype(np.float32))
+    pb = pa + torch.from_numpy(
+        0.05 * rng.standard_normal(pa.shape).astype(np.float32))
+    feats = torch.from_numpy(rng.standard_normal((1, M, 5))
+                             .astype(np.float32))
+    want = banded.knn_group2_plain(qa, qb, pa, pb, feats, k, plan, PARAMS)
+    for (q, p), (want_d, want_i, want_g) in zip(((qa, pa), (qb, pb)),
+                                                (want[:3], want[3:])):
+        d, idx = _unpack(_split_merge(_band_keys(q, p, plan), k, s), plan)
+        assert torch.equal(d, want_d)
+        assert torch.equal(idx, want_i)
+        assert torch.equal(feats[0][idx.long()], want_g)
+    assert not torch.equal(want[1], want[4])  # the searches differ

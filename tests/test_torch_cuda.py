@@ -16,6 +16,9 @@ past n_valid, whose 1e10 keys differ only by position; duplicated points,
 whose equal distances break ties by position) and float32 and bf16 feats
 of C = 35, 99, 131 and 132; chip_smoke.py holds each S at the main path's
 shapes through measurement builds that fix it.
+knn and knn_group2 (the same selection body: knn with no grouping,
+knn_group2 two searches in one launch, search b's clouds a warped copy of
+search a's under search a's plan) run over the same cases.
 Tolerances: sqdist, idx, grouped (knn_group and knn_group2's
 twin searches), knn's and regroup EXACT; knn_idw's output float32 1e-5
 relative + 1e-6 absolute (the same float32 operations, so in practice
@@ -332,26 +335,46 @@ def test_cuda_plain_sum_orders(cuda_dev, shape):
 
 
 @pytest.mark.cuda
-def test_cuda_knn_and_knn_group2_match_plain(case):
-    c = case
-    before = dict(banded.LAUNCHES)
-    got = banded.knn(c["q"], c["p"], 16, c["plan"], PARAMS)
-    want = banded.knn_plain(c["q"], c["p"], 16, c["plan"], PARAMS)
+@pytest.mark.parametrize("cloud", SPLIT_CLOUDS)
+@pytest.mark.parametrize("bsz", [1, 4])
+@pytest.mark.parametrize("n", SPLIT_N)
+@pytest.mark.parametrize("params", SPLIT_PARAMS)
+@pytest.mark.parametrize("k", SPLIT_K)
+def test_cuda_knn_matches_plain(cuda_dev, k, params, n, bsz, cloud):
+    q, p, plan = _split_case(n, bsz, params, cloud)
+    want = banded.knn_plain(q, p, k, plan, params)
+    before = banded.LAUNCHES["knn"]
+    got = banded.knn(q, p, k, plan, params)
+    assert banded.LAUNCHES["knn"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if cloud == "padded" and k > 5:  # slots past the band's 5 valid rows
+        assert bool((want[0] >= 5e9).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feats", SPLIT_FEATS)
+@pytest.mark.parametrize("cloud", SPLIT_CLOUDS)
+@pytest.mark.parametrize("bsz", [1, 4])
+@pytest.mark.parametrize("n", SPLIT_N)
+@pytest.mark.parametrize("params", SPLIT_PARAMS)
+@pytest.mark.parametrize("k", SPLIT_K)
+def test_cuda_knn_group2_matches_plain(cuda_dev, k, params, n, bsz, cloud,
+                                       feats):
+    q, p, plan = _split_case(n, bsz, params, cloud)
+    # search b: a warped copy of search a's clouds, as the cost volume makes
+    # it, searched under search a's plan
     gen = torch.Generator(device="cuda").manual_seed(1)
-    qb = c["q"] + 0.05 * torch.randn(c["q"].shape, generator=gen,
-                                     device="cuda")
-    pb = c["p"] + 0.05 * torch.randn(c["p"].shape, generator=gen,
-                                     device="cuda")
-    for f in (c["feats"], c["feats"].to(torch.bfloat16)):
-        got = banded.knn_group2(c["q"], qb, c["p"], pb, f, K, c["plan"],
-                                PARAMS)
-        want = banded.knn_group2_plain(c["q"], qb, c["p"], pb, f, K,
-                                       c["plan"], PARAMS)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
-    assert banded.LAUNCHES["knn"] == before["knn"] + 1
-    assert banded.LAUNCHES["knn_group2"] == before["knn_group2"] + 2
+    qb = q + 0.05 * torch.randn(q.shape, generator=gen, device="cuda")
+    pb = p + 0.05 * torch.randn(p.shape, generator=gen, device="cuda")
+    f = _split_feats(bsz, p.shape[1], *feats)
+    want = banded.knn_group2_plain(q, qb, p, pb, f, k, plan, params)
+    before = banded.LAUNCHES["knn_group2"]
+    got = banded.knn_group2(q, qb, p, pb, f, k, plan, params)
+    assert banded.LAUNCHES["knn_group2"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the two searches differ: search b is not search a's copy
+    assert not torch.equal(got[1], got[4])
 
 
 def _scatter_plan(kind, bsz, params):
