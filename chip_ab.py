@@ -7,7 +7,8 @@ second checkout (for example the parent commit, unpacked with
     python3 chip_ab.py KERNELS OLD [NEW]
 
 KERNELS is a comma-separated list of knn_group, knn_idw, knn, knn_group2,
-cost_attention, scatter_add, regroup and scatter_softmax_sum, or ``all``.
+cost_attention, scatter_add, regroup, scatter_softmax_sum and attention, or
+``all``.
 It imports nothing of JAX and nothing of the JAX package. Four processes
 run in turn, OLD, NEW, NEW, OLD (NEW defaults to this checkout); each
 imports the port (``ssf_slam_tpu_torch``) of its checkout, builds that
@@ -30,7 +31,10 @@ box, at batch 1 and 4 (frame pairs (0, 1), (2, 3), (4, 5), (6, 7)):
   and seeded costs [B, 8192, 64] bf16;
 - scatter_softmax_sum: the level-0 cost volume's backward cost,
   knn_group's indices, seeded values [B, 8192, 16, 64] bf16 and logits
-  shifted by their maximum.
+  shifted by their maximum;
+- attention: the level-0 cost volume's q_feat and k_feat (phase 2's
+  inputs; at batch 4 those of frame pairs (0, 1) ... (6, 7)), [B, 8192,
+  16, 64], in bf16 and in float32.
 
 Each time is taken two ways, in both checkouts alike:
 
@@ -43,10 +47,12 @@ Each time is taken two ways, in both checkouts alike:
 Both come from this checkout's chip_smoke.py, imported before the port.
 
 knn_group, knn_idw, knn, knn_group2 and regroup must give the same bits
-in every process (a hash of their outputs). cost_attention and the
-scatters sum in another order than the old kernels, so each process holds
-them to a reference instead: cost_attention to its own checkout's plain
-version within chip_smoke.py's COST_ATTENTION_TOL, scatter_add and
+in every process (a hash of their outputs). cost_attention, attention and
+the scatters sum in another order than the old kernels, so each process
+holds them to a reference instead: cost_attention to its own checkout's
+plain version within chip_smoke.py's COST_ATTENTION_TOL, attention to its
+own checkout's plain version within chip_smoke.py's attention_agreement
+(bf16 within ATTENTION_TOL, float32 within 1e-5), scatter_add and
 scatter_softmax_sum to their own checkout's plain versions within
 chip_smoke.py's scatter_agreement and softmax_agreement (1e-5 + 1e-5 |want|
 beyond the rounding bound of two float32 sums).
@@ -65,13 +71,14 @@ import os
 import subprocess
 import sys
 
-from chip_smoke import (TRAIN_BATCH, cost_attention_agreement,
-                        cost_attention_levels, cuda_ms, queued_ms,
-                        scatter_agreement, softmax_agreement, spy_scatter)
+from chip_smoke import (TRAIN_BATCH, attention_agreement,
+                        cost_attention_agreement, cost_attention_levels,
+                        cuda_ms, queued_ms, scatter_agreement,
+                        softmax_agreement, spy_scatter)
 
 N_POINTS = 8192
 KERNELS = ("knn_group", "knn_idw", "knn", "knn_group2", "cost_attention",
-           "scatter_add", "regroup", "scatter_softmax_sum")
+           "scatter_add", "regroup", "scatter_softmax_sum", "attention")
 TRAIN_TAG = "scatter_add train step"
 
 
@@ -246,6 +253,21 @@ def child(root: str, kernels: list[str], dev: str = "cuda") -> dict:
             take(f"cost_attention [{n},16,64] C2=32 bf16",
                  lambda qf=qf, kf=kf, qc=qc, wn=wn:
                  attention.cost_attention_fused(qf, kf, qc, wn), within)
+    if "attention" in kernels:
+        for bsz in (1, 4):
+            qf, kf = cost_attention_levels(frames, dev,
+                                           pairs=bsz)[N_POINTS][:2]
+            for dt in (torch.bfloat16, torch.float32):
+                a, b = qf.to(dt), kf.to(dt)
+                want = attention.attention_plain(a, b)
+
+                def close(got, want=want):
+                    ok, _, line = attention_agreement(got, want)
+                    return ok, line
+
+                take(f"attention B={bsz} [8192,16,64] "
+                     f"{str(dt).split('.')[-1]}",
+                     lambda a=a, b=b: attention.attention_fused(a, b), close)
     return out
 
 

@@ -12,10 +12,10 @@ printing its own line and failing loudly:
    16 and 32, cost_attention.cu without its recheck, band_scatter.cu with the
    scatters' value loads fixed at 1 and 4 elements, where the shipped
    library takes 2), check in nvcc's -Xptxas -v report (kept beside each
-   library) that every kernel of the kNN library, and every bf16
-   cost_attention, scatter and regroup instance, has a 0-byte stack frame
-   and no spills (printing the shipped libraries' lines) and print the
-   card's name and power limit;
+   library) that every kernel of the kNN and the attention libraries, and
+   every bf16 cost_attention, scatter and regroup instance, has a 0-byte
+   stack frame and no spills (printing the shipped libraries' lines) and
+   print the card's name and power limit;
 2. kernels: each of the nine kernels at its largest main-path shape, on
    Morton-sorted clouds of the bench sequence (the cost attention on the
    level-0 cost volume's own inputs, with the folded weightnet of the
@@ -25,7 +25,9 @@ printing its own line and failing loudly:
    1e-5 relative + 1e-5 absolute for the atomics' run-to-run order;
    cost_attention as stated and justified at COST_ATTENTION_TOL; knn and
    knn_group2 exact; scatter_add as the scatter; attention as stated at
-   ATTENTION_TOL), and timed with CUDA
+   ATTENTION_TOL, printing the body that ran and its agreement, and again
+   at batch 4 (frame pairs 0-3) and in float32 (within 1e-5), each timed
+   alone), and timed with CUDA
    events beside the plain version, one PyTorch library call where one
    computes the same function, and the bound of the card. Then
    knn_group and knn_idw, redesigned for the card, at every distinct shape
@@ -71,7 +73,13 @@ printing its own line and failing loudly:
    run_sequence on the card, so that loop closure, ICP and the pose graph
    run there: n_loops equal to the JAX fixture's
    (tests/fixtures/torch_port/ssf_slam_small_ref.npz, loop/*) and > 0,
-   is_keyframe equal, pose_t and odom_t within LOOP_TOL (1e-3 m);
+   is_keyframe equal, pose_t and odom_t within LOOP_TOL (1e-3 m); then the
+   keyframe buffer past max_keyframes (tests/test_torch_mapping.py's
+   overflow case: 5 slots, 21 keyframes, 4 loop closures past the buffer)
+   through mapping_step on the card against the JAX run committed in
+   tests/fixtures/torch_port/mapping_overflow_ref.npz: keyframe flags,
+   n_kf and n_loops equal at every step, the poses within OVERFLOW_TOL
+   (1e-4, the CPU test's tolerance), the loop slots equal;
 7. train: the training path at full width (8192 points, joint seg, bf16,
    banded, batch 4), warm-started from the committed weights with a fresh
    optimizer, on a corpus of 2 worlds x 4 frames with label weights: the
@@ -341,11 +349,14 @@ NO_FRAME = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 # and x S 8, 16, 32 in the shipped library), the bf16 cost attention ((KP
 # 16 x CP 32, 64, 128) and (KP 32 x CP 128), x C2P 16, 32, 64, 128), the
 # scatters (two element types x scatter-add and softmax-sum x VEC 1 and the
-# shipped VEC) and regroup (units of 16, 8, 4 and 2 bytes)
+# shipped VEC), regroup (units of 16, 8, 4 and 2 bytes) and every kernel of
+# the attention library: the tensor-core body (KP 16, 32 x CP 32, 64, 128)
+# and the CUDA-core body (float32 and bf16)
 FRAME_CHECKS = {"ssf_band_knn": (None, 72),
                 "ssf_cost_attention": (("cost_attention_kernel",), 16),
                 "ssf_band_scatter": (("scatter_kernel", "regroup_kernel"),
-                                     12)}
+                                     12),
+                "ssf_attention": (None, 8)}
 # the measurement builds held to NO_FRAME too, and their instance counts
 # (one S; VEC = 1 has one scatter instance a type and kind)
 CHECKED_BUILDS = {**{b: 24 for b in SPLIT_BUILDS}, VEC_BUILDS[0]: 8,
@@ -637,7 +648,9 @@ def phase_kernels(frames, dev) -> dict:
         f"by value-load width (-DSSF_SCATTER_VEC): " + ", ".join(
             f"VEC={v} {t:.4f}" for v, t in by_vec.items()) + f" ms, shipped "
         f"(VEC=2) {out['scatter_softmax_sum']['alone']:.4f}")
-    out["attention"] = kernel_attention(inputs[0], inputs[1])
+    out["attention"] = kernel_attention(
+        inputs[0], inputs[1],
+        *cost_attention_levels(frames, dev, pairs=4)[N_POINTS][:2])
     for name, r in out.items():
         alone = f", alone {r['alone']:.4f} ms" if "alone" in r else ""
         say("kernels", f"{name} {r['shape']}: kernel {r['ms']:.4f} ms"
@@ -1057,10 +1070,12 @@ def cost_attention_inputs(frames, dev):
     return cost_attention_levels(frames, dev)[N_POINTS]
 
 
-def cost_attention_levels(frames, dev) -> dict:
+def cost_attention_levels(frames, dev, pairs: int = 1) -> dict:
     """{points: (q_feat, k_feat, q_cost, folded weightnet)} of the two cost
     volumes (flow0_r at 8192 points, flow1_r at 2048) on the bf16 path,
-    frame pair (0, 1): the inputs of the two launches of a scan."""
+    frame pair (0, 1): the inputs of the two launches of a scan; with
+    ``pairs`` > 1 those of frame pairs (0, 1), (2, 3), ... stacked into a
+    batch."""
     from ssf_slam_tpu_torch.config import FlowNetConfig
     from ssf_slam_tpu_torch.models import costvolume
     from ssf_slam_tpu_torch.weights import load_tflow
@@ -1076,14 +1091,20 @@ def cost_attention_levels(frames, dev) -> dict:
         seen.append(args)
         return fused(*args)
 
-    pcs = [torch.as_tensor(f["pos1"][None], device=dev) for f in frames[:2]]
     costvolume.cost_attention_fused = keep
     try:
-        with torch.inference_mode():
-            model(*pcs)
+        for p in range(pairs):
+            pcs = [torch.as_tensor(f["pos1"][None], device=dev)
+                   for f in frames[2 * p:2 * p + 2]]
+            with torch.inference_mode():
+                model(*pcs)
     finally:
         costvolume.cost_attention_fused = fused
-    return {args[0].shape[1]: args for args in seen}
+    by_n = {}
+    for args in seen:
+        by_n.setdefault(args[0].shape[1], []).append(args)
+    return {n: tuple(torch.cat([a[i] for a in runs]) for i in range(3))
+            + (runs[0][3],) for n, runs in by_n.items()}
 
 
 def cost_attention_agreement(got, want) -> tuple[bool, float, str]:
@@ -1143,39 +1164,69 @@ def kernel_cost_attention(q, k, qc, wn) -> dict:
         bound=bound(nbytes, flops, PEAK_BF16))
 
 
-def kernel_attention(q, k) -> dict:
+def attention_agreement(got, want) -> tuple[bool, float, str]:
+    """(within its tolerance, max abs error, a line of the agreement) of
+    attention's (q', k') against its plain version's: bf16 within
+    ATTENTION_TOL, float32 within 1e-5 + 1e-5 |value| (sum orders)."""
+    dt = want[0].dtype
+    if any(g.dtype != dt or g.shape != w.shape for g, w in zip(got, want)):
+        return False, float("inf"), "output types or shapes differ"
+    errs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+    refs = [w.float().abs() for w in want]
+    max_err = max(e.max().item() for e in errs)
+    equal = min((e == 0).float().mean().item() for e in errs)
+    if dt == torch.float32:
+        ok = all(bool((e <= 1e-5 + 1e-5 * r).all())
+                 for e, r in zip(errs, refs))
+        return ok, max_err, f"float32: equal on {equal:.6f}, max error " \
+            f"{max_err:.3g} (held to 1e-5 + 1e-5 |value|)"
+    tol = ATTENTION_TOL
+    shares, worst = [], 0.0
+    for e, r in zip(errs, refs):
+        rms = r.pow(2).mean().sqrt()
+        shares.append((e <= 1e-6 + tol["step"] * r).float().mean().item())
+        worst = max(worst, (e / (tol["step"] * (r + rms))).max().item())
+    ok = min(shares) >= tol["share"] and worst <= tol["all_steps"]
+    return ok, max_err, f"equal on {equal:.6f}, within one bf16 step on " \
+        f"{min(shares):.6f}, at most {worst:.3f} steps of (|value| + rms)"
+
+
+def kernel_attention(q, k, q4, k4) -> dict:
     """The dual-softmax attention alone on the level-0 cost volume's
-    q_feat / k_feat (bf16 [1, 8192, 16, 64])."""
+    q_feat / k_feat (bf16 [1, 8192, 16, 64]) against its plain version,
+    timed under cuda_ms and alone (queued_ms); then held and timed alone
+    at batch 4 (q4, k4: frame pairs 0-3) and in float32."""
     from ssf_slam_tpu_torch.ops import attention
 
     _, n, kk, c = q.shape
+    body = attention.attention_body(q.dtype, kk, c)
     got = attention.attention_fused(q, k)
-    want = attention.attention_plain(q, k)
-    tol = ATTENTION_TOL
-    shares, worst = [], 0.0
-    for g, w in zip(got, want):
-        check(g.dtype == w.dtype == q.dtype, "kernels", "attention types")
-        err, ref = (g.float() - w.float()).abs(), w.float().abs()
-        rms = ref.pow(2).mean().sqrt()
-        shares.append((err <= 1e-6 + tol["step"] * ref).float().mean().item())
-        worst = max(worst, (err / (tol["step"] * (ref + rms))).max().item())
-    say("kernels", f"attention agreement: within one bf16 step on "
-        f"{min(shares):.6f}, at most {worst:.3f} steps of (|value| + rms)")
-    check(min(shares) >= tol["share"] and worst <= tol["all_steps"],
-          "kernels", f"attention: {min(shares):.6f} within one step, "
-          f"{worst:.3f} steps at most")
-    max_err = max((g.float() - w.float()).abs().max().item()
-                  for g, w in zip(got, want))
-    # S, q' and k': 3 K*K*C multiply-adds per point in float32 on CUDA
-    # cores; two bf16 inputs read and two outputs written
-    return dict(
+    ok, max_err, line = attention_agreement(
+        got, attention.attention_plain(q, k))
+    say("kernels", f"attention [{n},{kk},{c}] bf16, body {body}: {line}")
+    check(ok, "kernels", f"attention misses its tolerance: {line}")
+    record = dict(
         max_abs_err=max_err, shape=f"[{n},{kk},{c}] bf16",
         ms=cuda_ms(lambda: attention.attention_fused(q, k)),
         alone=queued_ms(lambda: attention.attention_fused(q, k)),
         plain_ms=cuda_ms(lambda: attention.attention_plain(q, k)),
         # no one call computes the dual-softmax product
         library_ms=None,
-        bound=bound(4 * n * kk * c * 2, 2 * n * 3 * kk * kk * c))
+        # two inputs read and two outputs written; S, q' and k' are 3 K*K*C
+        # multiply-adds a point, on the bf16 tensor cores in the "mma"
+        # body, on the float32 CUDA cores in the "simt" one
+        bound=bound(4 * n * kk * c * 2, 2 * n * 3 * kk * kk * c,
+                    PEAK_BF16 if body == "mma" else PEAK_F32))
+    for tag, (a, b) in (("B=4 bf16", (q4, k4)),
+                        ("B=1 float32", (q.float(), k.float()))):
+        ok, _, line = attention_agreement(attention.attention_fused(a, b),
+                                          attention.attention_plain(a, b))
+        check(ok, "kernels", f"attention {tag} misses its tolerance: {line}")
+        record[tag] = queued_ms(lambda: attention.attention_fused(a, b))
+        say("kernels", f"attention {tag} {list(a.shape)}, body "
+            f"{attention.attention_body(a.dtype, kk, c)}: {line}; alone "
+            f"{record[tag]:.4f} ms")
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -1520,6 +1571,64 @@ def phase_loop(dev) -> None:
     check(dot <= LOOP_TOL, "loop", f"odom_t differs by {dot} m")
 
 
+OVERFLOW_FIXTURE = os.path.join(FIXTURES, "mapping_overflow_ref.npz")
+# the overflow case's poses against the JAX run, at every step: the CPU
+# test's tolerance (test_torch_mapping.py::
+# test_mapping_step_keyframe_overflow_matches_fixture)
+OVERFLOW_TOL = 1e-4
+OVERFLOW_STATE = ("kf_q", "kf_t", "cur_q", "cur_t")
+
+
+def phase_overflow(dev) -> None:
+    """The keyframe buffer past max_keyframes on the card: mapping_step
+    over tests/test_torch_mapping.py's overflow case (the square loop's 21
+    keyframes into 5 slots), under inference mode as the sequence runners
+    call it, against the committed JAX run: keyframe flags, n_kf and
+    n_loops equal at every step, OVERFLOW_STATE within OVERFLOW_TOL, the
+    loop slots equal."""
+    from ssf_slam_tpu_torch.config import MappingConfig
+    from ssf_slam_tpu_torch.mapping.keyframes import (
+        init_map_state,
+        mapping_step,
+    )
+
+    with np.load(OVERFLOW_FIXTURE) as z:
+        ref = {n: z[n] for n in z.files}
+    cfg = MappingConfig(**json.loads(str(ref["gates"])))
+    world = torch.as_tensor(ref["world"], device=dev)
+    state = init_map_state(cfg.max_keyframes, len(world), device=dev)
+    mask = torch.ones(len(world), dtype=torch.bool, device=dev)
+    qid = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    worst = 0.0
+    with torch.inference_mode():
+        for k in range(len(ref["odom_t"])):
+            state, out = mapping_step(
+                state, qid, torch.as_tensor(ref["odom_t"][k], device=dev),
+                world - torch.as_tensor(ref["true_t"][k], device=dev), mask,
+                float(k), cfg)
+            check(out["is_keyframe"] == bool(ref["is_keyframe"][k])
+                  and state.n_kf == int(ref["n_kf"][k])
+                  and state.n_loops == int(ref["n_loops"][k]), "loop",
+                  f"overflow step {k}: keyframe {out['is_keyframe']}, "
+                  f"n_kf {state.n_kf}, n_loops {state.n_loops}; JAX "
+                  f"{bool(ref['is_keyframe'][k])}, {int(ref['n_kf'][k])}, "
+                  f"{int(ref['n_loops'][k])}")
+            for n in OVERFLOW_STATE:
+                got = getattr(state, n).cpu().numpy()
+                worst = max(worst, float(np.abs(got - ref[n][k]).max()))
+    slots = all(np.array_equal(getattr(state, n).cpu().numpy(), ref[n])
+                for n in ("loop_a", "loop_b"))
+    past = int((ref["loop_a"][:state.n_loops] >= cfg.max_keyframes).sum())
+    say("loop", f"keyframe overflow on {dev}: {state.n_kf} keyframes into "
+        f"{cfg.max_keyframes} slots, {state.n_loops} loop closures ({past} "
+        f"past the buffer) as JAX; max |d| of {', '.join(OVERFLOW_STATE)} "
+        f"over the steps {worst:.3g}; loop slots equal: {slots}")
+    check(state.n_kf > cfg.max_keyframes and past > 0, "loop",
+          "the overflow case did not overflow")
+    check(worst <= OVERFLOW_TOL, "loop", f"overflow poses differ by {worst}")
+    check(slots, "loop", "overflow loop slots differ")
+
+
 # ---------------------------------------------------------------------------
 # phase 7: training
 # ---------------------------------------------------------------------------
@@ -1849,6 +1958,7 @@ def main() -> int:
             f"{device[False]:.3f} ms, on {device[True]:.3f} ms")
     launches_entry = phase_entry(frames, dev)
     phase_loop(dev)
+    phase_overflow(dev)
     launches_train = phase_train(dev, profile_dir)
     kernels = []
     for name, r in records.items():

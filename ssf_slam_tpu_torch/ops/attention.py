@@ -6,7 +6,8 @@ references in plain PyTorch. ``attention_fused`` is the port of the Pallas
 kernel ``_attention_pallas_2d``: the dual-softmax attention alone, with the
 product kept in float32 and one rounding of each attended output
 (``csrc/attention.cu`` for CUDA tensors, ``attention_plain`` for CPU
-tensors); its gradient re-linearises ``attention_xla``, as the JAX custom
+tensors; ``attention_body`` picks the kernel's tensor-core or CUDA-core
+body); its gradient re-linearises ``attention_xla``, as the JAX custom
 VJP does. ``cost_attention_fused`` is the port of the
 Pallas kernel ``_cost_attention_2d``: per query point, the dual-softmax
 attention of its K-neighbour patch, the BN-folded 3-layer weightnet on the
@@ -30,6 +31,8 @@ Tensor = torch.Tensor
 
 LAUNCHES = {"attention": 0, "cost_attention": 0}
 BN_EPS = 1e-3  # the weightnet BatchNorms' epsilon (Flax), not PyTorch's
+# the widest patch the tensor-core kernels take (K rows, C channels)
+MAX_K, MAX_C = 32, 128
 
 
 def reset_launches() -> None:
@@ -66,9 +69,23 @@ def attention_plain(q_feat: Tensor, k_feat: Tensor) -> tuple[Tensor, Tensor]:
     return qa, ka
 
 
+# the bodies of csrc/attention.cu, by the number its C entry takes
+ATTENTION_BODIES = {"simt": 0, "mma": 1}
+
+
+def attention_body(dtype: torch.dtype, k: int, c: int) -> str:
+    """The body of ``csrc/attention.cu`` that takes [.., K, C] features of
+    ``dtype``: "mma" (tensor cores) for bf16 with K <= 32 and C <= 128,
+    "simt" (CUDA cores) otherwise: float32 keeps its parity with the JAX
+    package, which TF32 tensor cores would change, and C up to 512 fits
+    the CUDA-core body's shared rows only."""
+    return "mma" if dtype == torch.bfloat16 and k <= MAX_K \
+        and c <= MAX_C else "simt"
+
+
 def _attention_kernel(q_feat: Tensor, k_feat: Tensor) -> tuple[Tensor, Tensor]:
-    """CUDA tensors launch ``csrc/attention.cu``; CPU tensors take
-    ``attention_plain``."""
+    """CUDA tensors launch ``csrc/attention.cu`` with the body that
+    ``attention_body`` names; CPU tensors take ``attention_plain``."""
     devs = {q_feat.device, k_feat.device}
     if devs == {torch.device("cpu")}:
         return attention_plain(q_feat, k_feat)
@@ -89,7 +106,8 @@ def _attention_kernel(q_feat: Tensor, k_feat: Tensor) -> tuple[Tensor, Tensor]:
     cuda_build.call(
         "ssf_attention", "ssf_attention", q_feat.data_ptr(), k_feat.data_ptr(),
         q_feat.numel() // (k * c), k, c, int(dt == torch.bfloat16),
-        qa.data_ptr(), ka.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        ATTENTION_BODIES[attention_body(dt, k, c)], qa.data_ptr(),
+        ka.data_ptr(), torch.cuda.current_stream().cuda_stream)
     LAUNCHES["attention"] += 1
     return qa, ka
 
@@ -212,9 +230,6 @@ def cost_attention_plain(q_feat: Tensor, k_feat: Tensor, q_cost: Tensor,
     wt = ew / torch.sum(ew, dim=-1, keepdim=True)
     cf = torch.sum(wt[..., None] * q_cost.float(), dim=-2)
     return cf.to(q_cost.dtype), wk.float()
-
-
-MAX_K, MAX_C = 32, 128
 
 
 def cost_attention_fused(q_feat: Tensor, k_feat: Tensor, q_cost: Tensor,

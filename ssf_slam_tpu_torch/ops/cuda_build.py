@@ -25,13 +25,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-# library name -> its source; every library also includes banded_common.cuh
+# library name -> its source; a source may include any header of csrc/
+# (HEADERS), and every library's hash covers them all
 SOURCES = {
     "ssf_band_knn": "band_knn.cu",
     "ssf_band_scatter": "band_scatter.cu",
     "ssf_cost_attention": "cost_attention.cu",
     "ssf_attention": "attention.cu",
 }
+HEADERS = ("banded_common.cuh", "mma_common.cuh")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,7 +56,7 @@ SIGNATURES = {
         "ssf_cost_attention": [_P] * 9 + [_I] * 5 + [_P, _P, _P],
     },
     "ssf_attention": {
-        "ssf_attention": [_P, _P] + [_I] * 4 + [_P, _P, _P],
+        "ssf_attention": [_P, _P] + [_I] * 5 + [_P, _P, _P],
     },
 }
 
@@ -82,7 +84,7 @@ def _flags(defines: tuple[str, ...]) -> list[str]:
 
 def _lib_path(name: str, defines: tuple[str, ...] = ()) -> str:
     h = hashlib.sha256()
-    for f in (SOURCES[name], "banded_common.cuh"):
+    for f in (SOURCES[name], *HEADERS):
         with open(os.path.join(SRC_DIR, f), "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(_flags(defines)).encode())

@@ -20,6 +20,15 @@ interpret mode where it is a kernel) and its counterpart in
   logit within 1e-3 (as the unfused model test), finest-flow mean
   end-point difference within 1e-4 m, against the JAX flows committed in
   ``tflow_small_ref.npz`` (tests/test_torch_model.py makes it).
+
+The tensor-core body of ``csrc/attention.cu`` runs only on the card; its
+arithmetic is emulated here (``_three_planes``): the patch padded with zeros
+to the kernel's KP rows and CP channels, padded rows and columns masked out
+of both softmaxes, W in float32 split into three bf16 planes (exactly W
+wherever |W| >= 2^-110), the plane products in float32, the smallest plane
+first, one rounding to bf16; held to ``attention_plain`` within
+chip_smoke.py's ATTENTION_TOL: one bf16 step (2^-7 of the value, + 1e-6)
+on 99.99 % of the elements, two steps of (|value| + rms) everywhere.
 """
 
 from __future__ import annotations
@@ -213,3 +222,92 @@ def test_small_tflow_fused_attention_matches_jax():
     epd = np.linalg.norm(flows[0][0, :, :3].numpy() - jflows[0][0, :, :3],
                          axis=-1).mean()
     assert epd < 1e-4, epd
+
+
+# where the three planes must add up to W exactly: the third plane's last
+# bit lies 2^-23 below W's leading one, so it is a bf16 number (bf16's
+# subnormal step is 2^-133) wherever |W| >= 2^-110
+PLANES_EXACT_FROM = 2.0 ** -110
+
+
+def _three_planes(q, k):
+    """The tensor-core body's arithmetic in plain PyTorch for bf16 [.., K,
+    C] q and k: returns (q', k', W float32, planes [3, .., K, K])."""
+    *lead, kn, c = q.shape
+    kp, cp = (16 if kn <= 16 else 32), next(x for x in (32, 64, 128)
+                                            if c <= x)
+    pad = [0, cp - c, 0, kp - kn]
+    q32 = torch.nn.functional.pad(q.float(), pad)
+    k32 = torch.nn.functional.pad(k.float(), pad)
+    s = q32 @ k32.transpose(-1, -2)
+    valid = torch.zeros(kp, kp, dtype=torch.bool)
+    valid[:kn, :kn] = True
+    s = s.masked_fill(~valid, -torch.inf)
+    # (a padded row's or column's maximum is -inf: its exps are masked)
+    e1 = torch.where(valid, torch.exp(s - torch.amax(s, -2, keepdim=True)),
+                     0.0)
+    e2 = torch.where(valid, torch.exp(s - torch.amax(s, -1, keepdim=True)),
+                     0.0)
+    s1 = e1 / torch.sum(e1, dim=-2, keepdim=True)
+    s2 = e2 / torch.sum(e2, dim=-1, keepdim=True)
+    w = torch.where(valid, s1 * s2, 0.0)
+    planes, rest = [], w
+    for _ in range(3):
+        p = rest.to(torch.bfloat16).float()
+        planes.append(p)
+        rest = rest - p
+    acc_q = sum(p @ k32 for p in planes[::-1])  # W_2 first
+    acc_k = sum(p.transpose(-1, -2) @ q32 for p in planes[::-1])
+    qa = (q32 + acc_q).to(torch.bfloat16)[..., :kn, :c]
+    ka = (k32 + acc_k).to(torch.bfloat16)[..., :kn, :c]
+    return qa, ka, w[..., :kn, :kn], torch.stack(planes)[..., :kn, :kn]
+
+
+@pytest.mark.parametrize("c", [64, 32, 128])
+@pytest.mark.parametrize("k", [16, 9, 32])
+def test_attention_three_planes_hold_tolerance(k, c):
+    from ssf_slam_tpu_torch.ops.attention import attention_body, attention_plain
+
+    rng = np.random.default_rng(100 + 3 * k + c)
+    q, kf = (torch.from_numpy(rng.normal(size=(2, 256, k, c), scale=0.4)
+                              .astype(np.float32)).to(torch.bfloat16)
+             for _ in range(2))
+    assert attention_body(torch.bfloat16, k, c) == "mma"
+    qa, ka, w, planes = _three_planes(q, kf)
+    # W as attention_plain builds it
+    q32, k32 = q.float(), kf.float()
+    s = q32 @ k32.transpose(-1, -2)
+    e1 = torch.exp(s - torch.amax(s, dim=-2, keepdim=True))
+    e2 = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    w_plain = (e1 / torch.sum(e1, dim=-2, keepdim=True)) \
+        * (e2 / torch.sum(e2, dim=-1, keepdim=True))
+    torch.testing.assert_close(w, w_plain, rtol=1e-6, atol=0.0)
+    # the planes: bf16 numbers that add up to W, exactly where |W| is at
+    # least PLANES_EXACT_FROM, and to within bf16's subnormal step below
+    assert torch.equal(planes, planes.to(torch.bfloat16).float())
+    total = (planes[0] + planes[1]) + planes[2]
+    exact = w.abs() >= PLANES_EXACT_FROM
+    assert bool(exact.any())
+    assert torch.equal(total[exact], w[exact])
+    assert bool(((total - w).abs()[~exact] <= 2.0 ** -133).all())
+    # the outputs against attention_plain, within ATTENTION_TOL's rule
+    for got, want in zip((qa, ka), attention_plain(q, kf)):
+        assert got.dtype == want.dtype == torch.bfloat16
+        err, ref = (got.float() - want.float()).abs(), want.float().abs()
+        rms = ref.pow(2).mean().sqrt()
+        share = (err <= 1e-6 + 2.0 ** -7 * ref).float().mean().item()
+        assert share >= 0.9999, share
+        assert bool((err <= 2 * 2.0 ** -7 * (ref + rms)).all())
+
+
+def test_attention_body_by_shape_and_type():
+    """The main path's shape [8192, 16, 64] in bf16 takes the tensor-core
+    body; float32 and channels past 128 take the CUDA-core body."""
+    from ssf_slam_tpu_torch.ops.attention import attention_body
+
+    assert attention_body(torch.bfloat16, 16, 64) == "mma"
+    assert attention_body(torch.bfloat16, 32, 128) == "mma"
+    assert attention_body(torch.bfloat16, 9, 99) == "mma"
+    assert attention_body(torch.float32, 16, 64) == "simt"
+    assert attention_body(torch.bfloat16, 16, 129) == "simt"
+    assert attention_body(torch.bfloat16, 20, 200) == "simt"

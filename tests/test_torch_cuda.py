@@ -35,7 +35,9 @@ regroup (exact) and scatter_softmax_sum (within the same tolerance beyond
 banded.scatter_softmax_sum_slack) over the same plans, batches and band
 blocks at C = 35, 64, 131, with feats or values at an aligned address and
 one element past it (so that the kernels' narrower units and loads run);
-attention ([2, 512, 16, 64]): float32 within 1e-5, bf16 within one bf16
+attention ([517] and [2, 517] points of K = 16, 9, 32, 20 rows and C =
+64, 32, 128, 99, 200 channels; bf16 with C <= 128 on the tensor-core body,
+the rest on the CUDA-core body): float32 within 1e-5, bf16 within one bf16
 step on 99.99 % and two steps of (|value| + rms) everywhere, and its
 gradient equal to attention_xla's. cost_attention (patches from a seed,
 [2, N, K, C] with C2 hidden units: the main path's N = 8192 and 2048 at
@@ -548,25 +550,39 @@ def test_cuda_grouping_backward_through_scatter_add(case):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+# attention's shapes: the main path's K = 16 and C = 64, padded rows (K =
+# 9, 20) and channels (C = 99), both row-tile counts of the tensor-core
+# body (K = 32) and its channel instances (C = 32, 128), and the CUDA-core
+# body's channels past them (C = 200); N = 517 points (not a multiple of
+# either body's warps a block) alone or in a batch of 2
+ATTENTION_K = [16, 9, 32, 20]
+ATTENTION_C = [64, 32, 128, 99, 200]
+ATTENTION_LEAD = [(517,), (2, 517)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("lead", ATTENTION_LEAD)
+@pytest.mark.parametrize("c", ATTENTION_C)
+@pytest.mark.parametrize("k", ATTENTION_K)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_attention_matches_plain(dtype):
-    """attention_fused against attention_plain on [2, 512, 16, 64]; bf16
-    within one bf16 step (2^-7 of the value) on 99.99 % and two steps of
-    (|value| + rms) everywhere, as chip_smoke.py's ATTENTION_TOL."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+def test_cuda_attention_matches_plain(cuda_dev, dtype, k, c, lead):
+    """attention_fused against attention_plain on [*lead, K, C]: float32
+    within 1e-5, bf16 within one bf16 step (2^-7 of the value) on 99.99 %
+    and two steps of (|value| + rms) everywhere, as chip_smoke.py's
+    ATTENTION_TOL; bf16 with C <= 128 runs the tensor-core body ("mma"),
+    the rest the CUDA-core body ("simt")."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     dt = getattr(torch, dtype)
-    q, k = (0.3 * torch.randn(2, 512, 16, 64, device="cuda", generator=gen)
-            for _ in range(2))
-    q, k = q.to(dt), k.to(dt)
+    q, kf = (0.3 * torch.randn(*lead, k, c, device="cuda", generator=gen)
+             .to(dt) for _ in range(2))
+    want_body = "mma" if dtype == "bfloat16" and c <= 128 else "simt"
+    assert attention.attention_body(dt, k, c) == want_body
     before = attention.LAUNCHES["attention"]
-    got = attention.attention_fused(q, k)
+    got = attention.attention_fused(q, kf)
     assert attention.LAUNCHES["attention"] == before + 1
-    want = attention.attention_plain(q, k)
+    want = attention.attention_plain(q, kf)
     for g, w in zip(got, want):
-        assert g.dtype == dt
+        assert g.dtype == dt and g.shape == w.shape
         if dtype == "float32":
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
         else:
@@ -574,10 +590,10 @@ def test_cuda_attention_matches_plain(dtype):
             rms = ref.pow(2).mean().sqrt()
             assert (err <= 1e-6 + 2.0 ** -7 * ref).float().mean() >= 0.9999
             assert bool((err <= 2 * 2.0 ** -7 * (ref + rms)).all())
-    qg, kg = (t.float().requires_grad_() for t in (q, k))
+    qg, kg = (t.float().requires_grad_() for t in (q, kf))
     qa, ka = attention.attention_fused(qg, kg)
     (qa.sum() + 2.0 * ka.sum()).backward()
-    q2, k2 = (t.float().requires_grad_() for t in (q, k))
+    q2, k2 = (t.float().requires_grad_() for t in (q, kf))
     qa2, ka2 = attention.attention_xla(q2, k2)
     (qa2.sum() + 2.0 * ka2.sum()).backward()
     torch.testing.assert_close(qg.grad, q2.grad)

@@ -28,11 +28,11 @@ import numpy as np
 import pytest
 import torch
 
-from ssf_slam_tpu.ops import se3 as jse3
-from ssf_slam_tpu_torch.ops import se3 as tse3
-
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-import torch_ref  # noqa: E402
+import torch_ref  # noqa: E402  (puts the repo on the path as a script)
+
+from ssf_slam_tpu.ops import se3 as jse3  # noqa: E402
+from ssf_slam_tpu_torch.ops import se3 as tse3  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -397,16 +397,106 @@ def test_mapping_step_square_loop_matches_jax():
     assert final_err < 0.5 * np.linalg.norm(path[-1][1] - path[-1][0])
 
 
+# the keyframe-buffer overflow case: K = 5 slots for the square loop's 21
+# keyframes; the gates let the last stored keyframe close its loop again
+# after the overflow, so loop factors name nodes past the buffer
+OVERFLOW_GATES = dict(LOOP_GATES, max_keyframes=5, loop_search_radius=11.0,
+                      loop_time_gap=3.0, loop_skip_after_close=1)
+# the JAX run of that case (make_overflow_fixture), which chip_smoke.py
+# also holds the port to on the card
+OVERFLOW_REF = os.path.join(torch_ref.FIXTURE_DIR,
+                            "mapping_overflow_ref.npz")
+OVERFLOW_STATE = ("kf_q", "kf_t", "cur_q", "cur_t")
+
+
 def test_mapping_step_keyframe_overflow_matches_jax():
     """Past max_keyframes the JAX step drops the keyframe writes and reads
     the last row; the port follows it instead of failing. The gates let
     the last stored keyframe close its loop again after the overflow, so
     loop factors name nodes past the buffer."""
-    k = 5
-    gates = dict(LOOP_GATES, loop_search_radius=11.0, loop_time_gap=3.0,
-                 loop_skip_after_close=1)
-    ts, path = _square_loop_both(max_keyframes=k, **gates)
+    k = OVERFLOW_GATES["max_keyframes"]
+    ts, path = _square_loop_both(**OVERFLOW_GATES)
     assert ts.n_kf == len(path) > k
     assert (ts.loop_a[:ts.n_loops] >= k).sum() >= 2, ts.loop_a
     assert all(np.isfinite(getattr(ts, n).numpy()).all()
-               for n in ("kf_q", "kf_t", "cur_q", "cur_t"))
+               for n in OVERFLOW_STATE)
+
+
+def make_overflow_fixture(path: str = OVERFLOW_REF) -> None:
+    """The JAX mapping_step over the overflow case: its inputs (the world
+    cloud, the true and the odometry positions, the gates as JSON) and, at
+    every step, the keyframe flag, n_kf, n_loops and OVERFLOW_STATE; the
+    final loop slots."""
+    import json
+
+    from ssf_slam_tpu.config import MappingConfig as JMC
+    from ssf_slam_tpu.mapping import init_map_state as j_init
+    from ssf_slam_tpu.mapping import mapping_step as j_step
+
+    world, path_ = _square_loop()
+    cfg = JMC(**OVERFLOW_GATES)
+    js = j_init(cfg.max_keyframes, len(world))
+    mask = np.ones(len(world), bool)
+    qid = np.array([0, 0, 0, 1], np.float32)
+    steps = {n: [] for n in ("is_keyframe", "n_kf", "n_loops")
+             + OVERFLOW_STATE}
+    for k, (true_t, odom_t) in enumerate(path_):
+        js, jo = j_step(js, jnp.asarray(qid), jnp.asarray(odom_t),
+                        jnp.asarray(world - true_t), jnp.asarray(mask),
+                        jnp.float32(k), cfg)
+        steps["is_keyframe"].append(bool(jo["is_keyframe"]))
+        steps["n_kf"].append(int(js.n_kf))
+        steps["n_loops"].append(int(js.n_loops))
+        for n in OVERFLOW_STATE:
+            steps[n].append(np.asarray(getattr(js, n)))
+    np.savez_compressed(
+        path, world=world, true_t=np.stack([p[0] for p in path_]),
+        odom_t=np.stack([p[1] for p in path_]),
+        gates=np.array(json.dumps(OVERFLOW_GATES)),
+        loop_a=np.asarray(js.loop_a), loop_b=np.asarray(js.loop_b),
+        **{n: np.stack(v) for n, v in steps.items()})
+
+
+def test_mapping_step_keyframe_overflow_matches_fixture():
+    """The port's mapping_step over the committed JAX run of the overflow
+    case (chip_smoke.py's phase 6b holds the card to the same file): the
+    keyframe flags, n_kf and n_loops equal and OVERFLOW_STATE within 1e-4
+    at every step, the final loop slots equal."""
+    import json
+
+    from ssf_slam_tpu_torch.config import MappingConfig
+    from ssf_slam_tpu_torch.mapping.keyframes import (
+        init_map_state,
+        mapping_step,
+    )
+
+    with np.load(OVERFLOW_REF) as z:
+        ref = {n: z[n] for n in z.files}
+    gates = json.loads(str(ref["gates"]))
+    assert gates == OVERFLOW_GATES
+    cfg = MappingConfig(**gates)
+    world = ref["world"]
+    ts = init_map_state(cfg.max_keyframes, len(world), device="cpu")
+    mask = torch.ones(len(world), dtype=torch.bool)
+    qid = torch.tensor([0.0, 0.0, 0.0, 1.0])
+    for k in range(len(ref["odom_t"])):
+        ts, to = mapping_step(ts, qid, _t(ref["odom_t"][k]),
+                              _t(world - ref["true_t"][k]), mask, float(k),
+                              cfg)
+        assert to["is_keyframe"] == bool(ref["is_keyframe"][k]), k
+        assert ts.n_kf == ref["n_kf"][k] and ts.n_loops == ref["n_loops"][k]
+        for n in OVERFLOW_STATE:
+            np.testing.assert_allclose(getattr(ts, n).numpy(), ref[n][k],
+                                       atol=1e-4, err_msg=f"{n} @ {k}")
+    assert ts.n_kf > cfg.max_keyframes
+    np.testing.assert_array_equal(ts.loop_a.numpy(), ref["loop_a"])
+    np.testing.assert_array_equal(ts.loop_b.numpy(), ref["loop_b"])
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--make-fixture"]:
+        sys.exit("usage: python tests/test_torch_mapping.py --make-fixture")
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    make_overflow_fixture()
