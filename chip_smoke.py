@@ -93,7 +93,26 @@ printing its own line and failing loudly:
    step's also with each value-load width build);
    and the f32 train step against the JAX fixture
    tests/fixtures/torch_port/ssf_train_ref.npz (loss 1e-4 relative, each
-   leaf's gradient norm 1e-3 relative, the new batch statistics 1e-4).
+   leaf's gradient norm 1e-3 relative, the new batch statistics 1e-4);
+8. variants: the pipeline variants besides SSF and ``geom_refine``. (a) f32
+   parity: the committed weights over the first 8 bench frames against
+   the JAX fixture tests/fixtures/torch_port/variants_ref.npz, phase 3's
+   tolerances (rel_t and pose_t within 1e-2 m, rotations within 1e-3 rad,
+   is_keyframe and n_features equal), for SF fused, SF fused with
+   geom_refine, SSF fused with geom_refine, and SEG, NO_SEG and ONLY_PC
+   through run_sequence on the ground-truth flow; (b) the SF main path:
+   bf16, the 32 bench frames, tower caching, the whole step with the GMM
+   split, counters reset just before and read just after, each equal to
+   phase 4's; finite outputs, ATE of pose_t below 0.5 m, scans/s; (c) the
+   evo protocol of README.md's round-5 table (the seed-100 sequence, 40
+   frames x 8192 points, 4 movers, bf16): seg, onlypc, noseg, sf and ssf
+   raw, sf and ssf with geom_refine, each written to a TUM file with the
+   port's write_tum and read back, printed as a table of ATE vs the seg
+   run, RPE (translation, rotation) vs it, ATE vs the ground truth, the
+   ATE vs the ground truth of the committed results_r5/ or
+   results_r5_refine/ trajectory and scans/s; every run but onlypc within
+   EVO_MARGIN (0.02 m) of its committed trajectory's ATE vs the ground
+   truth, onlypc finite (its parity is (a)'s).
 
 With ``--profile DIR`` it then runs phases 5 and 4 three times more in
 turns (so that each setting runs first as often as the other) and prints
@@ -1906,6 +1925,172 @@ def phase_train_parity(dev, loss_cfg) -> None:
           f"batch statistics {ws} differ by {stat_err[ws]:.2e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the other pipeline variants and geom_refine
+# ---------------------------------------------------------------------------
+
+
+VARIANTS_FIXTURE = os.path.join(FIXTURES, "variants_ref.npz")
+# name -> (variant, geom_refine, fused): the full-width f32 runs of
+# tests/test_torch_variants.py::FULL_RUNS, held to its JAX fixture
+F32_RUNS = {"sf": ("SF", False, True), "sf_refine": ("SF", True, True),
+            "ssf_refine": ("SSF", True, True), "seg": ("SEG", False, False),
+            "noseg": ("NO_SEG", False, False),
+            "onlypc": ("ONLY_PC", False, False)}
+# the evo protocol's sequence (README.md's round-5 table: cli evaluate
+# --synthetic --seed 100 --frames 40) and its runs: name -> (variant,
+# geom_refine, the committed trajectory of the JAX package's TPU run)
+EVO_FRAMES, EVO_SEED = 40, 100
+EVO_RUNS = {"seg": ("SEG", False, "results_r5/00_SEG.tum"),
+            "onlypc": ("ONLY_PC", False, "results_r5/00_ONLYPC.tum"),
+            "noseg": ("NO_SEG", False, "results_r5/00_NOSEG.tum"),
+            "sf": ("SF", False, "results_r5/00_SF.tum"),
+            "ssf": ("SSF", False, "results_r5/00_SSF.tum"),
+            "sf_refine": ("SF", True, "results_r5_refine/00_SF.tum"),
+            "ssf_refine": ("SSF", True, "results_r5_refine/00_SSF.tum")}
+# a flow variant's ATE vs the ground truth may exceed that of its committed
+# trajectory by this much (m); onlypc is printed beside it, its parity
+# held in (a)
+EVO_MARGIN = 0.02
+
+
+def _variant_cfg(variant: str, refine: bool):
+    from ssf_slam_tpu_torch import config as tc
+
+    return tc.PipelineConfig(variant=tc.Variant[variant],
+                             egomotion=tc.EgoMotionConfig(geom_refine=refine))
+
+
+def _run_variant(model, frames, variant: str, refine: bool, dev, box=None):
+    """One run through the entry point a user calls: the fused step for
+    SF / SSF (``model``), else run_sequence on the frames' ground-truth
+    flow. Returns (outputs, seconds on the host clock, ending on the
+    host)."""
+    from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
+    from ssf_slam_tpu_torch.engine.pipeline import run_sequence
+
+    cfg = _variant_cfg(variant, refine)
+    t0 = time.perf_counter()
+    if variant in ("SF", "SSF"):
+        got = run_sequence_fused(model, frames, cfg, device=dev, box=box,
+                                 use_gmm=variant == "SF")
+    else:
+        got = run_sequence(frames, cfg, device=dev)[1]
+    return got, time.perf_counter() - t0
+
+
+def phase_variants(frames, dev, smi: str, main_launches: dict) -> None:
+    """(a) the six full-width f32 runs against the JAX fixture; (b) the SF
+    main path (bf16, the 32 bench frames, tower caching), counters reset
+    just before and read just after, each equal to phase 4's; (c) the evo
+    protocol's seven runs on the seed-100 sequence, bf16, each written to a
+    TUM file and scored against the ground truth and the seg run, beside
+    the committed trajectories."""
+    import tempfile
+
+    from ssf_slam_tpu_torch.config import FlowNetConfig
+    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
+    from ssf_slam_tpu_torch.engine.evaluation import (
+        ate_rmse,
+        read_tum,
+        rpe,
+        write_tum,
+    )
+    from ssf_slam_tpu_torch.engine.fused import sequence_box, stack_fused_scans
+    from ssf_slam_tpu_torch.weights import load_tflow
+
+    # (a) f32 parity
+    n = N_FIXTURE_FRAMES
+    with np.load(VARIANTS_FIXTURE) as z:
+        ref = {k: z[k] for k in z.files}
+    fx = frames[:n]  # SEG, NO_SEG and ONLY_PC on the ground-truth flow
+    box = sequence_box(stack_fused_scans(fx, N_POINTS)["points"], device=dev)
+    f32 = load_tflow(FlowNetConfig(npoint=N_POINTS, joint_seg=True,
+                                   neighbor_backend="banded"), device=dev)
+    for name, (variant, refine, fused) in F32_RUNS.items():
+        got, _ = _run_variant(f32, fx, variant, refine, dev, box)
+        want = {k.split("/", 1)[1]: v for k, v in ref.items()
+                if k.startswith(name + "/")}
+        dt = np.abs(got["rel_t"] - want["rel_t"]).max()
+        dr = _rot_angle(got["rel_q"], want["rel_q"]).max()
+        dpt = np.abs(got["pose_t"] - want["pose_t"]).max()
+        dpr = _rot_angle(got["pose_q"], want["pose_q"]).max()
+        say("variants", f"(a) {name}: {n} f32 frames vs JAX: max |d rel_t| "
+            f"{dt:.3g} m, rotation {dr:.3g} rad; |d pose_t| {dpt:.3g} m, "
+            f"rotation {dpr:.3g} rad; keyframes "
+            f"{got['is_keyframe'].astype(int).tolist()}")
+        for key in ("rel_t", "pose_t", "pose_q", "odom_t"):
+            check(np.isfinite(got[key]).all(), "variants",
+                  f"{name}: non-finite {key}")
+        check(dt <= 1e-2 and dpt <= 1e-2, "variants",
+              f"{name}: rel_t / pose_t differ by {dt} / {dpt} m")
+        check(dr <= 1e-3 and dpr <= 1e-3, "variants",
+              f"{name}: rotations differ by {dr} / {dpr} rad")
+        for key in ("is_keyframe", "n_features"):
+            check(np.array_equal(got[key], want[key]), "variants",
+                  f"{name}: {key} {got[key].tolist()} != "
+                  f"{want[key].tolist()}")
+    del f32
+
+    # (b) the SF main path
+    model = bf16_model(dev, fuse=False)
+    _run_variant(model, frames[:2], "SF", False, dev)  # warm-up
+    torch.cuda.synchronize()
+    reset_all()
+    got, secs = _run_variant(model, frames, "SF", False, dev)
+    launches = read_all()
+    gt = np.stack([f["pose1"][1] for f in frames])
+    ate = ate_rmse(got["pose_t"], gt)
+    say("variants", f"(b) SF main path, {len(frames)} frames x {N_POINTS} "
+        f"points, bf16: {len(frames) / secs:.2f} scans/s (host clock; "
+        f"{smi}), ATE pose_t {ate:.4f} m, odom_t "
+        f"{ate_rmse(got['odom_t'], gt):.4f} m, launches {launches}")
+    for key in ("pose_q", "pose_t", "rel_q", "rel_t", "odom_t", "flow"):
+        check(np.isfinite(got[key]).all(), "variants", f"SF: non-finite {key}")
+    for name in (*PER_SCAN, "cost_attention"):
+        check(launches[name] == main_launches[name], "variants",
+              f"SF: {name} launched {launches[name]} times, phase 4 "
+              f"{main_launches[name]}")
+    check(ate < 0.5, "variants", f"SF ATE {ate} m")
+
+    # (c) the evo protocol
+    evo = generate_sequence(n_frames=EVO_FRAMES, n_points=N_POINTS,
+                            seed=EVO_SEED, noise=0.004, n_moving=4)
+    gt_pos = np.stack([f["pose1"][1] for f in evo])
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (variant, refine, committed) in EVO_RUNS.items():
+            got, secs = _run_variant(model, evo, variant, refine, dev)
+            path = os.path.join(tmp, f"00_{name.upper()}.tum")
+            write_tum(path, [f["time"] for f in evo], got["pose_t"],
+                      got["pose_q"])
+            _, pos, quat = read_tum(path)
+            _, cpos, _ = read_tum(committed)
+            runs[name] = (pos, quat, ate_rmse(pos, gt_pos),
+                          ate_rmse(cpos, gt_pos), len(evo) / secs)
+    ref_pos, ref_quat = runs["seg"][:2]
+    say("variants", f"(c) evo protocol: seed {EVO_SEED}, {EVO_FRAMES} "
+        f"frames x {N_POINTS} points, bf16, the seg run the reference; "
+        f"scans/s on the host clock ({smi})")
+    say("variants", "| run | ATE vs Seg (m) | RPE trans (m) | RPE rot (deg) "
+        "| ATE vs GT (m) | committed ATE vs GT (m) | scans/s |")
+    for name, (pos, quat, ate_gt, ate_c, sps) in runs.items():
+        if name == "seg":
+            cols = "(reference) | | "
+        else:
+            r = rpe(pos, quat, ref_pos, ref_quat)
+            cols = (f"{ate_rmse(pos, ref_pos):.4f} | {r['trans_rmse']:.4f} "
+                    f"| {r['rot_rmse_deg']:.4f}")
+        say("variants", f"| {name} | {cols} | {ate_gt:.4f} | {ate_c:.4f} | "
+            f"{sps:.2f} |")
+        check(np.isfinite(pos).all() and np.isfinite(quat).all(),
+              "variants", f"{name}: non-finite trajectory")
+        if name != "onlypc":
+            check(ate_gt <= ate_c + EVO_MARGIN, "variants",
+                  f"{name}: ATE vs GT {ate_gt:.4f} m exceeds the committed "
+                  f"{ate_c:.4f} m by more than {EVO_MARGIN} m")
+
+
 def main() -> int:
     args = sys.argv[1:]
     profile_dir = serve = None
@@ -1928,7 +2113,7 @@ def main() -> int:
         phase_build()
         phase_main(bench_frames(), dev, fuse=False, weights=serve)
         return 0
-    phase_build()
+    smi = phase_build()
     frames = bench_frames()
     records = phase_kernels(frames, dev)
     phase_shapes(frames, dev)
@@ -1960,6 +2145,7 @@ def main() -> int:
     phase_loop(dev)
     phase_overflow(dev)
     launches_train = phase_train(dev, profile_dir)
+    phase_variants(frames, dev, smi, launches)
     kernels = []
     for name, r in records.items():
         src, replaces = KERNELS[name]

@@ -7,14 +7,19 @@ package so that each module's counterpart is easy to find:
 
 - ``ops``       geometry + neighbour engine (Morton codes, band plan, the
                 banded and attention CUDA kernels with their plain PyTorch
-                versions and gradients, kNN, FPS, grouping, SE(3), Kabsch)
+                versions and gradients, kNN, FPS, grouping, SE(3), Kabsch,
+                the GMM split)
 - ``models``    TFlow scene-flow network (tower / head split), its loss and
                 metrics
-- ``odometry``  ego-motion from scene flow (static-masked IRLS Kabsch)
+- ``odometry``  ego-motion from scene flow (static-masked IRLS Kabsch), the
+                scan-to-scan Gauss-Newton with its BEV init (ONLY_PC) and
+                the flow-pose refine (``geom_refine``)
 - ``frontend``, ``mapping``  plane features, keyframe map, pose graph
-- ``engine``    the fused SSF step and its sequence runner
+- ``engine``    the SLAM step of every variant but ssfc, the fused SF / SSF
+                step, their sequence runners, ATE / RPE / TUM files
 - ``train``     the train step, optimizer, loop, harness and entry point
 - ``data``      the synthetic CARLA-style generator, label weights
+- ``utils``     run logging, KITTI / TUM pose files
 - ``weights``   Flax <-> PyTorch parameter conversion, committed weights
 
 Entry points run on the card (``device="cuda"``) unless the caller passes

@@ -1,9 +1,9 @@
-"""Typed configuration: the port's copy of what the fused SSF step and
-training need from ``ssf_slam_tpu/config.py`` (LidarConfig, FeatureConfig,
-OdometryConfig, EgoMotionConfig, MappingConfig, FlowNetConfig, LossConfig,
-TrainConfig and PipelineConfig). Field names and defaults are the JAX
-package's. ``PipelineConfig.variant`` defaults to SSF, the one variant the
-port runs.
+"""Typed configuration: the port's copy of what the SLAM step, the fused
+step and training need from ``ssf_slam_tpu/config.py`` (LidarConfig,
+FeatureConfig, OdometryConfig, EgoMotionConfig, MappingConfig,
+FlowNetConfig, LossConfig, TrainConfig and PipelineConfig). Field names and
+defaults are the JAX package's, ``PipelineConfig.variant`` (ONLY_PC)
+included.
 """
 
 from __future__ import annotations
@@ -14,7 +14,10 @@ from typing import Tuple
 
 
 class Variant(enum.Enum):
-    """Pipeline variants (launch-file equivalents). This slice runs SSF."""
+    """Pipeline variants (launch-file equivalents): ONLY_PC geometric
+    scan-to-scan, SEG the ground-truth mask on a provided flow, NO_SEG a GMM
+    split of a provided flow, SF a GMM split of TFlow's flow, SSF TFlow's
+    flow and seg head."""
 
     ONLY_PC = "onlypc"
     SEG = "seg"
@@ -49,9 +52,9 @@ class FeatureConfig:
 
 @dataclasses.dataclass(frozen=True)
 class OdometryConfig:
-    """Scan-to-scan registration (src/lidarOdometry_onlyPC.cpp). The SSF
-    step reads none of it (ONLY_PC and ``geom_refine`` do); it is carried
-    so that a PipelineConfig has the JAX package's shape."""
+    """Scan-to-scan registration (src/lidarOdometry_onlyPC.cpp): the
+    ONLY_PC odometry, and the ring-diverse plane fit that ``geom_refine``
+    also uses."""
 
     outer_iters: int = 2
     gn_iters: int = 8
@@ -90,8 +93,8 @@ class EgoMotionConfig:
     # 0 = the reference's single unweighted SVD
     irls_iters: int = 2
     irls_sigma: float = 0.05  # expected static flow error (m)
-    # seg-gated geometric refinement of the flow pose (not ported: the
-    # step raises NotImplementedError when it is on)
+    # seg-gated geometric refinement of the flow pose
+    # (odometry/flow_refine.py)
     geom_refine: bool = False
     refine_src_stride: int = 4
     refine_outer: int = 2
@@ -217,7 +220,7 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    variant: Variant = Variant.SSF
+    variant: Variant = Variant.ONLY_PC
     lidar: LidarConfig = LidarConfig()
     features: FeatureConfig = FeatureConfig()
     odometry: OdometryConfig = OdometryConfig()

@@ -1,11 +1,13 @@
-"""The fused network-in-the-loop SSF step (ssf_slam_tpu/engine/fused.py).
+"""The fused network-in-the-loop step of the SSF and SF variants
+(ssf_slam_tpu/engine/fused.py).
 
 Per scan: the current cloud's TFlow tower, the head against the cached
-tower of the previous scan, the static mask from the joint seg logit
-(``out[:, 3] < 0``), then the whole SLAM step (``engine/pipeline.py::
-slam_step``) on the previous cloud and its flow: plane features,
-static-masked IRLS Kabsch ego-motion, odometry integration and the
-seg-gated keyframe mapping back end.
+tower of the previous scan, then the whole SLAM step (``engine/pipeline.py::
+slam_step``) on the previous cloud and its flow: plane features, the
+ego-motion (SSF: IRLS Kabsch under the joint seg head's static mask,
+``out[:, 3] < 0``; SF: a GMM split of [flow || xyz], the seg channel of a
+joint model unused), odometry integration and the seg-gated keyframe
+mapping back end.
 
 Tower caching: frame k's cloud-1 is frame k-1's cloud-2, so the previous
 scan's tower rides the carry ``(SlamState, tower_prev)``. A cached tower is
@@ -17,10 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ssf_slam_tpu_torch.config import PipelineConfig
+from ssf_slam_tpu_torch.config import PipelineConfig, Variant
 from ssf_slam_tpu_torch.device import resolve_device
 from ssf_slam_tpu_torch.engine.pipeline import (
-    check_supported,
     init_slam_state,
     slam_step,
     stack_outputs,
@@ -54,16 +55,17 @@ def stack_fused_scans(frames: list, n: int) -> dict:
     )
 
 
-def make_fused_step(model, cfg: PipelineConfig, box):
-    """Returns ``(step, make_carry)``:
+def make_fused_step(model, cfg: PipelineConfig, box, use_gmm: bool = False):
+    """The step of SF (``use_gmm``) or SSF: the variant of ``cfg`` is set
+    to that. Returns ``(step, make_carry)``:
     - ``step(carry, scan) -> (carry, outputs)`` for one scan dict of
       tensors {points [N, 3], prev [N, 3], mask [N], prev_mask [N], time}
       with ``carry = (SlamState, tower_prev)``;
     - ``make_carry(first_prev [N, 3]) -> carry`` with the initial state and
       tower (frame 0 pairs with itself).
-    Outputs: those of ``slam_step`` plus the network output ``flow`` [N, 4].
+    Outputs: those of ``slam_step`` plus the network output ``flow`` [N, 3 | 4].
     """
-    check_supported(cfg)
+    cfg = cfg.replace(variant=Variant.SF if use_gmm else Variant.SSF)
     if model.cfg.neighbor_backend == "banded" and box is None:
         raise ValueError("tower caching on the banded backend needs a "
                          "sequence-stable Morton box (sequence_box)")
@@ -76,7 +78,9 @@ def make_fused_step(model, cfg: PipelineConfig, box):
         slam_scan = dict(points=scan["points"], mask=scan["mask"],
                          time=scan["time"], flow_points=scan["prev"],
                          flow_mask=scan["prev_mask"],
-                         flow=out[:, :3].float(), static_mask=out[:, 3] < 0.0)
+                         flow=out[:, :3].float())
+        if not use_gmm:
+            slam_scan["static_mask"] = out[:, 3] < 0.0
         state, outputs = slam_step(state, slam_scan, cfg)
         outputs["flow"] = out
         return (state, t_curr), outputs
@@ -91,12 +95,13 @@ def make_fused_step(model, cfg: PipelineConfig, box):
 def run_sequence_fused(model, frames: list,
                        cfg: PipelineConfig = PipelineConfig(),
                        device: str | torch.device = "cuda",
-                       box=None) -> dict:
+                       box=None, use_gmm: bool = False) -> dict:
     """Frames (data/synthetic.py schema) -> per-frame outputs as numpy:
     the map pose pose_q [F, 4] / pose_t [F, 3], odom_q / odom_t, rel_q /
     rel_t, is_keyframe [F] bool, n_features and n_dyn_over [F] int32, and
     the network output flow [F, N, 3 | 4] (flow + seg logit of the pair
-    (frame k-1, frame k), in frame k-1's point order). ``model`` must
+    (frame k-1, frame k), in frame k-1's point order). The variant is SF
+    with ``use_gmm``, else SSF, whatever ``cfg`` says. ``model`` must
     already live on ``device``. ``box`` defaults to the ``sequence_box`` of
     the frames; pass a longer sequence's box to run a prefix of it."""
     dev = resolve_device(device)
@@ -108,7 +113,7 @@ def run_sequence_fused(model, frames: list,
     if box is None and model.cfg.neighbor_backend == "banded":
         box = sequence_box(arrays["points"], device=dev)
     scans = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
-    step, make_carry = make_fused_step(model, cfg, box)
+    step, make_carry = make_fused_step(model, cfg, box, use_gmm)
     outs = []
     with torch.inference_mode():
         carry = make_carry(scans["prev"][0])

@@ -335,14 +335,18 @@ def _try_close_loop(state: MapState, idx: int,
 
 
 def _add_keyframe(state: MapState, q, t, cloud_xyz, cloud_mask, time,
-                  cfg: MappingConfig) -> MapState:
+                  cfg: MappingConfig, cloud_planes=None) -> MapState:
     idx = state.n_kf
     r = state.kf_rnorm.shape[1]
     stride = max(cloud_xyz.shape[0] // r, 1)
     src_xyz, src_mask = cloud_xyz[::stride][:r], cloud_mask[::stride][:r]
     qk, tk = q, t
     if cfg.scan_to_map_refine:
-        src_nrm, src_nvalid = fit_local_planes(src_xyz, src_mask)
+        if cloud_planes is not None:  # the scan's ring-diverse planes
+            src_nrm = cloud_planes.normal[::stride][:r]
+            src_nvalid = cloud_planes.valid[::stride][:r]
+        else:
+            src_nrm, src_nvalid = fit_local_planes(src_xyz, src_mask)
         if idx >= cfg.refine_min_keyframes:
             qk, tk, cq, ct, _ = _refine_to_submap(state, q, t, src_xyz,
                                                   src_mask, cfg)
@@ -375,17 +379,19 @@ def _add_keyframe(state: MapState, q, t, cloud_xyz, cloud_mask, time,
 
 def mapping_step(state: MapState, odom_q: Tensor, odom_t: Tensor,
                  cloud_xyz: Tensor, cloud_mask: Tensor, time,
-                 cfg: MappingConfig = MappingConfig()):
+                 cfg: MappingConfig = MappingConfig(), cloud_planes=None):
     """One odometry frame + feature cloud [F, 3] / [F] -> (state,
     {pose_q, pose_t, is_keyframe}). The pose is the loop-corrected map pose
     (T_map = trans_loop_adjust * T_odom, :450), or the new keyframe's
-    (refined, possibly re-optimised) pose on a keyframe. The strided
-    normals are fit inside the keyframe branch (the JAX package's
-    ``cloud_planes`` hand-off serves ``geom_refine``, not ported)."""
+    (refined, possibly re-optimised) pose on a keyframe. A keyframe stores
+    the strided rows of ``cloud_planes`` (the cloud's ``PlaneModel``, which
+    ONLY_PC and ``geom_refine`` fit anyway) as its normals; without them
+    the strided rows' normals are fit inside the keyframe branch."""
     q, t = pose_compose((state.adjust_q, state.adjust_t), (odom_q, odom_t))
     is_kf = _is_keyframe(state, q, t, cfg)
     if is_kf:
-        state = _add_keyframe(state, q, t, cloud_xyz, cloud_mask, time, cfg)
+        state = _add_keyframe(state, q, t, cloud_xyz, cloud_mask, time, cfg,
+                              cloud_planes)
     else:
         state = state._replace(cur_q=q, cur_t=t)
     return state, dict(pose_q=state.cur_q, pose_t=state.cur_t,

@@ -169,3 +169,14 @@ def pose_apply(pose, p: Tensor) -> Tensor:
 def pose_between(pose_a, pose_b):
     """T_a^-1 * T_b, the relative pose (gtsam Pose3::between)."""
     return pose_compose(pose_inverse(pose_a), pose_b)
+
+
+def quat_from_rpy(roll: Tensor, pitch: Tensor, yaw: Tensor) -> Tensor:
+    """ZYX Euler angles (tf::createQuaternionFromRPY) -> [..., 4] xyzw."""
+    cr, sr = torch.cos(roll / 2), torch.sin(roll / 2)
+    cp, sp = torch.cos(pitch / 2), torch.sin(pitch / 2)
+    cy, sy = torch.cos(yaw / 2), torch.sin(yaw / 2)
+    return torch.stack([sr * cp * cy - cr * sp * sy,
+                        cr * sp * cy + sr * cp * sy,
+                        cr * cp * sy - sr * sp * cy,
+                        cr * cp * cy + sr * sp * sy], dim=-1)

@@ -148,7 +148,7 @@ def make_small_fixture(path: str = SMALL_REF) -> None:
 
 def test_small_run_sequence_fused_matches_jax(small_frames):
     from ssf_slam_tpu_torch.config import FlowNetConfig, LidarConfig
-    from ssf_slam_tpu_torch.config import PipelineConfig
+    from ssf_slam_tpu_torch.config import PipelineConfig, Variant
     from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
     from ssf_slam_tpu_torch.ops import banded
     from ssf_slam_tpu_torch.weights import load_tflow
@@ -156,7 +156,8 @@ def test_small_run_sequence_fused_matches_jax(small_frames):
     with np.load(SMALL_REF) as z:
         want = {k: z[k] for k in z.files}
     model = load_tflow(FlowNetConfig(**torch_ref.SMALL_NET), device="cpu")
-    cfg = PipelineConfig(lidar=LidarConfig(max_points=1024))
+    cfg = PipelineConfig(variant=Variant.SSF,
+                         lidar=LidarConfig(max_points=1024))
     banded.reset_launches()
     got = run_sequence_fused(model, small_frames, cfg, device="cpu")
     assert sum(banded.LAUNCHES.values()) == 0
