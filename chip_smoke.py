@@ -31,7 +31,8 @@ printing its own line and failing loudly:
    events beside the plain version, one PyTorch library call where one
    computes the same function, and the bound of the card. Then
    knn_group and knn_idw, redesigned for the card, at every distinct shape
-   their wrappers receive in a 2-frame run of the main path (batch 1), and
+   their wrappers receive in a 2-frame run of the ssfc main path (SSF's
+   calls and the SegNet's two knn_group shapes; batch 1), and
    at the level-0 shapes at batch 1 and 4, warm and with the L2 flushed
    before each launch: exact against the plain version (knn_idw's output as
    above; float32 to 1e-5 relative) with the split S (lanes per query) the
@@ -112,7 +113,29 @@ printing its own line and failing loudly:
    ATE vs the ground truth of the committed results_r5/ or
    results_r5_refine/ trajectory and scans/s; every run but onlypc within
    EVO_MARGIN (0.02 m) of its committed trajectory's ATE vs the ground
-   truth, onlypc finite (its parity is (a)'s).
+   truth, onlypc finite (its parity is (a)'s); ssfc and ssfc with
+   geom_refine among the runs (the SegNet classifier, bf16, as the JAX CLI
+   builds it, with the committed weights);
+9. ssfc and the entry points. (a) f32 parity: both nets' committed
+   weights over the first 8 bench frames against the JAX fixture
+   tests/fixtures/torch_port/ssfc_ref.npz at phase 3's tolerances, and
+   frame 1's classifier on the fixture's flow: static masks equal on
+   SEG_AGREE (99.9 %) of the points, logits within 1e-3; (b) the ssfc main
+   path: bf16, the 32 bench frames, tower caching, the whole step with the
+   classifier's mask, counters reset just before and read just after, each
+   equal to phase 4's plus the SegNet's PER_SCAN_SEGNET a scan; finite
+   outputs, ATE of pose_t below 0.5 m, scans/s beside phase 4's, the
+   SegNet's device time and launches a scan (torch.profiler); (f)
+   predict_flow_resampled on frame pair (0, 1): how far its members lie
+   apart; (d) the command line in
+   subprocesses: run --variant ssfc (f32 TFlow) within RUN_TOL (1e-3 m) of
+   the same build in process, evaluate --variants noseg,ssfc (its TUM and
+   KITTI files and table), run --stream at depth 1 and 2 (its rate and
+   latency lines); (e) StreamingRunner in f32 over 8 frames within RUN_TOL
+   of run_sequence_fused under the runner's box, a state checkpoint after
+   4 of the 8 scans resumed in a fresh runner within RUN_TOL of the
+   uninterrupted run, and in bf16 over the 32 frames at depth 1, 2, 2 and
+   1 in turns (Hz, completion latency mean and p95, dispatch mean and p95).
 
 With ``--profile DIR`` it then runs phases 5 and 4 three times more in
 turns (so that each setting runs first as often as the other) and prints
@@ -679,11 +702,14 @@ def phase_kernels(frames, dev) -> dict:
     return out
 
 
-# the main path's knn_group and knn_idw calls by (N, M, k): its layers
+# the main paths' knn_group and knn_idw calls by (N, M, k): their layers
+# (ssfc's SegNet adds two knn_group shapes)
 SPLIT_LAYERS = {
     "knn_group": {(2048, 8192, 16): "sa1", (512, 2048, 16): "sa2",
                   (2048, 512, 16): "su1", (8192, 2048, 16): "su0",
-                  (2048, 2048, 16): "flow1_r", (8192, 8192, 16): "flow0_r"},
+                  (2048, 2048, 16): "flow1_r", (8192, 8192, 16): "flow0_r",
+                  (1024, 8192, 16): "segnet sa1",
+                  (8192, 1024, 8): "segnet fp1"},
     "knn_idw": {(8192, 2048, 7): "L0 upsample_multi",
                 (8192, 2048, 3): "L0 upsample_flow",
                 (8192, 8192, 7): "L0 point_warping",
@@ -712,7 +738,8 @@ def split_build(split: int):
 
 def main_path_calls(frames, dev) -> dict:
     """{kernel: {shape key: [inputs, calls]}} of knn_group, knn_idw,
-    regroup and scatter_softmax_sum in a 2-frame bf16 run of the main path
+    regroup and scatter_softmax_sum in a 2-frame bf16 run of the ssfc main
+    path, which runs the SSF main path's calls and the SegNet's
     (fuse_attention off; the carry's tower, then two scans), the inputs of
     each shape's first call kept."""
     from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
@@ -739,11 +766,11 @@ def main_path_calls(frames, dev) -> dict:
             return wrapped[name](*args)
         return call
 
-    model = bf16_model(dev, fuse=False)
+    model, seg = bf16_model(dev, fuse=False), seg_model(dev)
     for name in seen:
         setattr(banded, name, spy(name))
     try:
-        run_sequence_fused(model, frames[:2], device=dev)
+        run_sequence_fused(model, frames[:2], device=dev, seg_apply=seg)
     finally:
         for name, fn in wrapped.items():
             setattr(banded, name, fn)
@@ -1947,7 +1974,9 @@ EVO_RUNS = {"seg": ("SEG", False, "results_r5/00_SEG.tum"),
             "sf": ("SF", False, "results_r5/00_SF.tum"),
             "ssf": ("SSF", False, "results_r5/00_SSF.tum"),
             "sf_refine": ("SF", True, "results_r5_refine/00_SF.tum"),
-            "ssf_refine": ("SSF", True, "results_r5_refine/00_SSF.tum")}
+            "ssf_refine": ("SSF", True, "results_r5_refine/00_SSF.tum"),
+            "ssfc": ("SSFC", False, "results_r5/00_SSFC.tum"),
+            "ssfc_refine": ("SSFC", True, "results_r5_refine/00_SSFC.tum")}
 # a flow variant's ATE vs the ground truth may exceed that of its committed
 # trajectory by this much (m); onlypc is printed beside it, its parity
 # held in (a)
@@ -1961,19 +1990,24 @@ def _variant_cfg(variant: str, refine: bool):
                              egomotion=tc.EgoMotionConfig(geom_refine=refine))
 
 
-def _run_variant(model, frames, variant: str, refine: bool, dev, box=None):
+def _run_variant(model, frames, variant: str, refine: bool, dev, box=None,
+                 seg=None):
     """One run through the entry point a user calls: the fused step for
-    SF / SSF (``model``), else run_sequence on the frames' ground-truth
-    flow. Returns (outputs, seconds on the host clock, ending on the
-    host)."""
+    SF / SSF (``model``) and ssfc ("SSFC": SSF with the SegNet ``seg`` as
+    its classifier), else run_sequence on the frames' ground-truth flow.
+    Returns (outputs, seconds on the host clock, ending on the host)."""
     from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
     from ssf_slam_tpu_torch.engine.pipeline import run_sequence
 
+    seg_apply = seg if variant == "SSFC" else None
+    if seg_apply is not None:
+        variant = "SSF"
     cfg = _variant_cfg(variant, refine)
     t0 = time.perf_counter()
     if variant in ("SF", "SSF"):
         got = run_sequence_fused(model, frames, cfg, device=dev, box=box,
-                                 use_gmm=variant == "SF")
+                                 use_gmm=variant == "SF",
+                                 seg_apply=seg_apply)
     else:
         got = run_sequence(frames, cfg, device=dev)[1]
     return got, time.perf_counter() - t0
@@ -2053,14 +2087,16 @@ def phase_variants(frames, dev, smi: str, main_launches: dict) -> None:
               f"{main_launches[name]}")
     check(ate < 0.5, "variants", f"SF ATE {ate} m")
 
-    # (c) the evo protocol
+    # (c) the evo protocol; ssfc's classifier as the JAX CLI builds it
+    seg = seg_model(dev)
     evo = generate_sequence(n_frames=EVO_FRAMES, n_points=N_POINTS,
                             seed=EVO_SEED, noise=0.004, n_moving=4)
     gt_pos = np.stack([f["pose1"][1] for f in evo])
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, (variant, refine, committed) in EVO_RUNS.items():
-            got, secs = _run_variant(model, evo, variant, refine, dev)
+            got, secs = _run_variant(model, evo, variant, refine, dev,
+                                     seg=seg)
             path = os.path.join(tmp, f"00_{name.upper()}.tum")
             write_tum(path, [f["time"] for f in evo], got["pose_t"],
                       got["pose_q"])
@@ -2089,6 +2125,319 @@ def phase_variants(frames, dev, smi: str, main_launches: dict) -> None:
             check(ate_gt <= ate_c + EVO_MARGIN, "variants",
                   f"{name}: ATE vs GT {ate_gt:.4f} m exceeds the committed "
                   f"{ate_c:.4f} m by more than {EVO_MARGIN} m")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: ssfc and the entry points
+# ---------------------------------------------------------------------------
+
+
+SSFC_FIXTURE = os.path.join(FIXTURES, "ssfc_ref.npz")
+# the SegNet's banded launches per scan at 8192 points (band_params, work
+# floor 2^20): sa1 (1024 <- 8192) and fp1 (8192 <- 1024) take knn_group;
+# sa2 (256 <- 1024) and fp2 (1024 <- 256) the exact path
+PER_SCAN_SEGNET = {"knn_group": 2}
+# frame 1's classifier on the fixture's flow against JAX's: static masks
+# equal on this share of the points, logits within this (float32)
+SEG_AGREE, SEG_LOGIT_TOL = 0.999, 1e-3
+# poses of two runs of one f32 computation on the card (the CLI's against
+# the in-process run; stream against batch under one box; resumed against
+# uninterrupted), in metres: the scatters' float32 atomics move the flow
+# in its last bits from run to run
+RUN_TOL = 1e-3
+N_STREAM_F32, N_RESUME = 8, 4
+N_RESAMPLE = 4
+WEIGHTS = os.path.join("ssf_slam_tpu_torch", "weights")
+CLI_CKPTS = ["--ckpt", os.path.join(WEIGHTS, "ssf_r3ft2.npz"),
+             "--seg-ckpt", os.path.join(WEIGHTS, "segnet_r3.npz")]
+
+
+def profiled_ms(fn, n: int = 8) -> tuple[float, float]:
+    """(device ms, kernel launches) a call of fn() over n calls, from
+    torch.profiler's device-side events (the SegNet's own host time
+    outlasts its kernels, so events around it time the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    # device-side events only: the aten ops that launched them carry the
+    # same time again
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3 / n,
+            sum(e.count for e in kernels) / n)
+
+
+def seg_model(dev, dtype: str = "bfloat16"):
+    """The ssfc classifier with the committed weights (bf16 by default, as
+    the JAX CLI builds it)."""
+    from ssf_slam_tpu_torch.weights import load_segnet
+
+    return load_segnet(dtype=dtype, device=dev)
+
+
+def f32_model(dev):
+    from ssf_slam_tpu_torch.config import FlowNetConfig
+    from ssf_slam_tpu_torch.weights import load_tflow
+
+    return load_tflow(FlowNetConfig(npoint=N_POINTS, joint_seg=True,
+                                    neighbor_backend="banded"), device=dev)
+
+
+def _pose_diff(got: dict, want: dict) -> tuple[float, float]:
+    """Largest |d pose_t| (m) and pose rotation (rad) over the frames."""
+    return (float(np.abs(got["pose_t"] - want["pose_t"]).max()),
+            float(_rot_angle(got["pose_q"], want["pose_q"]).max()))
+
+
+def phase_ssfc(frames, dev, smi: str, main_launches: dict,
+               main_sps: float) -> None:
+    """(a) f32 parity with the JAX fixture and frame 1's classifier; (b)
+    the ssfc main path, counters reset just before and read just after;
+    (f) the resampled ensemble's members."""
+    from ssf_slam_tpu_torch.engine.evaluation import ate_rmse
+    from ssf_slam_tpu_torch.engine.fused import (
+        run_sequence_fused,
+        sequence_box,
+        stack_fused_scans,
+    )
+    from ssf_slam_tpu_torch.models.inference import predict_flow_resampled
+
+    # (a) f32 parity
+    n = N_FIXTURE_FRAMES
+    with np.load(SSFC_FIXTURE) as z:
+        ref = {k: z[k] for k in z.files}
+    pts = stack_fused_scans(frames[:n], N_POINTS)["points"]
+    box = sequence_box(pts, device=dev)
+    check(np.array_equal(box[0].cpu().numpy(), ref["box_origin"])
+          and np.array_equal(box[1].cpu().numpy(), ref["box_scale"]),
+          "ssfc", "the fixture's Morton box differs")
+    f32, seg32 = f32_model(dev), seg_model(dev, "float32")
+    got = run_sequence_fused(f32, frames[:n], device=dev, box=box,
+                             seg_apply=seg32)
+    dt = np.abs(got["rel_t"] - ref["rel_t"]).max()
+    dr = _rot_angle(got["rel_q"], ref["rel_q"]).max()
+    dpt, dpr = _pose_diff(got, ref)
+    with torch.inference_mode():
+        prev = torch.as_tensor(pts[0], device=dev)[None]
+        flow = torch.as_tensor(ref["flow/1"], device=dev)[None]
+        logits = seg32(prev, flow)[0].cpu().numpy()
+    dl = float(np.abs(logits - ref["logits/1"]).max())
+    agree = float(((logits.argmax(-1) == 0) == ref["static/1"]).mean())
+    say("ssfc", f"(a) {n} f32 frames vs JAX (ssfc_ref.npz): max |d rel_t| "
+        f"{dt:.3g} m, rotation {dr:.3g} rad; |d pose_t| {dpt:.3g} m, "
+        f"rotation {dpr:.3g} rad; keyframes "
+        f"{got['is_keyframe'].astype(int).tolist()}; frame 1's classifier "
+        f"on JAX's flow: logits within {dl:.3g}, static masks agree on "
+        f"{agree:.6f} ({int((~ref['static/1']).sum())} moving in JAX)")
+    for key in ("rel_t", "pose_t", "pose_q", "odom_t"):
+        check(np.isfinite(got[key]).all(), "ssfc", f"non-finite {key}")
+    check(dt <= 1e-2 and dpt <= 1e-2, "ssfc",
+          f"rel_t / pose_t differ by {dt} / {dpt} m")
+    check(dr <= 1e-3 and dpr <= 1e-3, "ssfc",
+          f"rotations differ by {dr} / {dpr} rad")
+    for key in ("is_keyframe", "n_features"):
+        check(np.array_equal(got[key], ref[key]), "ssfc",
+              f"{key} {got[key].tolist()} != {ref[key].tolist()}")
+    check(agree >= SEG_AGREE and dl <= SEG_LOGIT_TOL, "ssfc",
+          f"frame 1's classifier: agreement {agree}, logits {dl}")
+
+    # (b) the ssfc main path
+    model, seg = bf16_model(dev, fuse=False), seg_model(dev)
+    run_sequence_fused(model, frames[:2], device=dev, seg_apply=seg)
+    torch.cuda.synchronize()
+    reset_all()
+    t0 = time.perf_counter()
+    got = run_sequence_fused(model, frames, device=dev, seg_apply=seg)
+    secs = time.perf_counter() - t0
+    launches = read_all()
+    gt = np.stack([f["pose1"][1] for f in frames])
+    ate = ate_rmse(got["pose_t"], gt)
+    sps = len(frames) / secs
+    with torch.inference_mode():
+        prev = torch.as_tensor(pts[0], device=dev)[None]
+        flow = torch.as_tensor(got["flow"][1][:, :3].astype(np.float32),
+                               device=dev)[None]
+        seg_dev, seg_launches = profiled_ms(lambda: seg(prev, flow))
+        seg_host = cuda_ms(lambda: seg(prev, flow))
+    say("ssfc", f"(b) ssfc main path, {len(frames)} frames x {N_POINTS} "
+        f"points, bf16: {sps:.2f} scans/s (host clock; phase 4's SSF "
+        f"{main_sps:.2f} in this call; {smi}), ATE pose_t {ate:.4f} m, "
+        f"odom_t {ate_rmse(got['odom_t'], gt):.4f} m, "
+        f"{int(got['is_keyframe'].sum())} keyframes; the SegNet a scan: "
+        f"{seg_dev:.3f} ms of device time in {seg_launches:.0f} launches "
+        f"(torch.profiler), {seg_host:.3f} ms under cuda_ms (host-bound); "
+        f"launches {launches}")
+    for key in ("pose_q", "pose_t", "rel_q", "rel_t", "odom_t", "flow"):
+        check(np.isfinite(got[key]).all(), "ssfc", f"non-finite {key}")
+    for name, base in main_launches.items():
+        want = base + PER_SCAN_SEGNET.get(name, 0) * len(frames)
+        check(launches[name] == want, "ssfc",
+              f"{name} launched {launches[name]} times, expected {want} "
+              f"(phase 4's {base} + the SegNet's)")
+    check(ate < 0.5, "ssfc", f"ATE {ate} m")
+
+    # (f) the resampled ensemble: how far apart its members are
+    pc1, pc2 = (torch.as_tensor(p, device=dev)[None] for p in pts[:2])
+    gen = torch.Generator().manual_seed(0)
+    perms = torch.stack([torch.randperm(N_POINTS, generator=gen)
+                         for _ in range(N_RESAMPLE)])
+    with torch.inference_mode():
+        members = torch.stack([predict_flow_resampled(
+            model, pc1, pc2, perms=p[None])[0, :, :3].float() for p in perms])
+        mean = predict_flow_resampled(model, pc1, pc2, perms=perms)
+    spread = (members - members[0]).norm(dim=-1)
+    say("ssfc", f"(f) predict_flow_resampled, bf16, frame pair (0, 1), "
+        f"{N_RESAMPLE} permutations: member end-point distance from member "
+        f"0 max {float(spread.max()):.4g} m, mean "
+        f"{float(spread.mean()):.4g} m; members equal: "
+        f"{[bool(torch.equal(m, members[0])) for m in members[1:]]}")
+    check(bool(torch.isfinite(mean).all()), "ssfc",
+          "non-finite resampled flow")
+
+
+def _cli(args: list) -> str:
+    """``python -m ssf_slam_tpu_torch.cli`` in a subprocess from the
+    checkout's root; fails on a nonzero exit; returns its standard output."""
+    cmd = [sys.executable, "-m", "ssf_slam_tpu_torch.cli", *args]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, "entry", f"{' '.join(args[:2])} exit "
+          f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def phase_cli(dev) -> None:
+    """(d) the command line in subprocesses: run ssfc (f32 TFlow, as the
+    CLI builds the classifier: bf16) against the same build in process;
+    evaluate noseg,ssfc; run --stream at depth 1 and 2."""
+    import tempfile
+
+    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
+    from ssf_slam_tpu_torch.engine.evaluation import read_tum
+    from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tum = os.path.join(tmp, "ssfc.tum")
+        out = _cli(["run", "--variant", "ssfc", "--synthetic", "--frames",
+                    str(N_FIXTURE_FRAMES), "--net-dtype", "float32",
+                    *CLI_CKPTS, "--out", tum])
+        say("entry", "(d) cli run --variant ssfc: " + " | ".join(
+            out.strip().splitlines()))
+        frames = generate_sequence(n_frames=N_FIXTURE_FRAMES,
+                                   n_points=N_POINTS, seed=0, noise=0.004,
+                                   n_moving=4)
+        want = run_sequence_fused(f32_model(dev), frames, device=dev,
+                                  seg_apply=seg_model(dev))
+        _, pos, quat = read_tum(tum)
+        dp = float(np.abs(pos - want["pose_t"]).max())
+        dq = float(_rot_angle(quat, want["pose_q"]).max())
+        say("entry", f"(d) its TUM file vs the same build in process: "
+            f"|d pose_t| {dp:.3g} m, rotation {dq:.3g} rad")
+        check(len(pos) == N_FIXTURE_FRAMES and dp <= RUN_TOL, "entry",
+              f"cli ssfc poses differ by {dp} m")
+
+        res = os.path.join(tmp, "res")
+        out = _cli(["evaluate", "--synthetic", "--frames",
+                    str(N_FIXTURE_FRAMES), "--variants", "noseg,ssfc",
+                    *CLI_CKPTS, "--out-dir", res])
+        table = [line for line in out.splitlines() if line.startswith("|")]
+        for line in table:
+            say("entry", f"(d) cli evaluate: {line}")
+        for v in ("SEG", "NOSEG", "SSFC"):
+            for ext in ("tum", "kitti"):
+                path = os.path.join(res, f"00_{v}.{ext}")
+                check(os.path.exists(path), "entry", f"no {path}")
+        check(any(line.startswith("| ssfc |") for line in table)
+              and any(line.startswith("| noseg |") for line in table),
+              "entry", "cli evaluate printed no table")
+
+        for depth in (1, 2):
+            out = _cli(["run", "--variant", "ssf", "--stream", "--synthetic",
+                        "--frames", str(N_FRAMES), "--pipeline-depth",
+                        str(depth), CLI_CKPTS[0], CLI_CKPTS[1], "--out",
+                        os.path.join(tmp, f"stream{depth}.tum")])
+            lines = [line for line in out.splitlines()
+                     if line.startswith(("rate ", "streamed "))]
+            say("entry", f"(d) cli run --stream --pipeline-depth {depth}: "
+                + " | ".join(lines))
+            check(len(lines) == 2 and "completion latency mean" in lines[1],
+                  "entry", f"--stream depth {depth} printed {out!r}")
+
+
+def phase_stream(frames, dev, smi: str) -> None:
+    """(e) StreamingRunner: f32 against the batch runner under its box;
+    bf16 at depth 1 and 2 over the 32 frames; a checkpoint after 4 of 8 f32
+    scans, resumed in a fresh runner, against the uninterrupted run."""
+    import tempfile
+
+    from ssf_slam_tpu_torch.config import PipelineConfig, Variant
+    from ssf_slam_tpu_torch.engine.checkpoint import (
+        load_slam_state,
+        save_slam_state,
+    )
+    from ssf_slam_tpu_torch.engine.evaluation import read_tum
+    from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
+    from ssf_slam_tpu_torch.engine.streaming import StreamingRunner
+
+    cfg = PipelineConfig(variant=Variant.SSF)
+    f32 = f32_model(dev)
+    fx = frames[:N_STREAM_F32]
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = StreamingRunner(f32, cfg, pipeline_depth=2, device=dev,
+                                tum_path=os.path.join(tmp, "whole.tum"))
+        whole.run(iter(fx))
+        _, pos, quat = read_tum(os.path.join(tmp, "whole.tum"))
+        stream = dict(pose_t=pos, pose_q=quat)
+        batch = run_sequence_fused(f32, fx, cfg, device=dev, box=whole.box)
+        dp, dq = _pose_diff(stream, batch)
+        say("stream", f"(e) StreamingRunner f32, {len(fx)} frames, depth 2, "
+            f"vs run_sequence_fused under its box: |d pose_t| {dp:.3g} m, "
+            f"rotation {dq:.3g} rad")
+        check(dp <= RUN_TOL, "stream", f"stream vs batch: {dp} m")
+
+        first = StreamingRunner(f32, cfg, pipeline_depth=1, device=dev,
+                                tum_path=os.path.join(tmp, "a.tum"))
+        first.run(iter(fx[:N_RESUME]))
+        ckpt = os.path.join(tmp, "state.npz")
+        save_slam_state(ckpt, first.final_state, N_RESUME)
+        state, index = load_slam_state(ckpt, cfg, dev)
+        rest = StreamingRunner(f32, cfg, pipeline_depth=1, device=dev,
+                               box=first.box,
+                               tum_path=os.path.join(tmp, "b.tum"))
+        rest.run(iter(fx[index:]), state=state, prev=fx[index - 1])
+        parts = [read_tum(os.path.join(tmp, f"{x}.tum")) for x in "ab"]
+        resumed = dict(pose_t=np.concatenate([p[1] for p in parts]),
+                       pose_q=np.concatenate([p[2] for p in parts]))
+        dp, dq = _pose_diff(resumed, stream)
+        say("stream", f"(e) saved after {N_RESUME} of {len(fx)} f32 scans "
+            f"({os.path.getsize(ckpt) / 2**20:.1f} MiB), resumed in a fresh "
+            f"runner: |d pose_t| {dp:.3g} m, rotation {dq:.3g} rad vs the "
+            f"uninterrupted run")
+        check(len(resumed["pose_t"]) == len(fx) and dp <= RUN_TOL, "stream",
+              f"resumed vs uninterrupted: {dp} m")
+
+    # depth 1 and 2 in turns (1, 2, 2, 1): the host clock spreads by
+    # tens of percent within a call
+    model = bf16_model(dev, fuse=False)
+    for depth in (1, 2, 2, 1):
+        runner = StreamingRunner(model, cfg, pipeline_depth=depth,
+                                 device=dev)
+        st = runner.run(iter(frames))
+        say("stream", f"(e) StreamingRunner bf16, {st['n_scans']} frames, "
+            f"depth {depth}: {st['hz']:.2f} Hz, completion latency mean "
+            f"{st['latency_ms_mean']:.2f} ms, p95 {st['latency_ms_p95']:.2f}"
+            f" ms, dispatch mean {st['dispatch_ms_mean']:.2f} ms, p95 "
+            f"{st['dispatch_ms_p95']:.2f} ms ({smi})")
+        check(st["n_scans"] == len(frames) and np.isfinite(st["hz"]),
+              "stream", f"depth {depth}: {st}")
 
 
 def main() -> int:
@@ -2146,6 +2495,9 @@ def main() -> int:
     phase_overflow(dev)
     launches_train = phase_train(dev, profile_dir)
     phase_variants(frames, dev, smi, launches)
+    phase_ssfc(frames, dev, smi, launches, e2e["scans_per_s"])
+    phase_cli(dev)
+    phase_stream(frames, dev, smi)
     kernels = []
     for name, r in records.items():
         src, replaces = KERNELS[name]

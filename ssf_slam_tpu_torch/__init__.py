@@ -9,17 +9,22 @@ package so that each module's counterpart is easy to find:
                 banded and attention CUDA kernels with their plain PyTorch
                 versions and gradients, kNN, FPS, grouping, SE(3), Kabsch,
                 the GMM split)
-- ``models``    TFlow scene-flow network (tower / head split), its loss and
-                metrics
+- ``models``    TFlow scene-flow network (tower / head split), its loss,
+                metrics and resampled inference; the SegNet classifier
+                (ssfc)
 - ``odometry``  ego-motion from scene flow (static-masked IRLS Kabsch), the
                 scan-to-scan Gauss-Newton with its BEV init (ONLY_PC) and
                 the flow-pose refine (``geom_refine``)
 - ``frontend``, ``mapping``  plane features, keyframe map, pose graph
-- ``engine``    the SLAM step of every variant but ssfc, the fused SF / SSF
-                step, their sequence runners, ATE / RPE / TUM files
+- ``engine``    the SLAM step of every variant, the fused SF / SSF / ssfc
+                step, their sequence runners, the streaming runner,
+                SLAM-state checkpoints, ATE / RPE / TUM files
 - ``train``     the train step, optimizer, loop, harness and entry point
-- ``data``      the synthetic CARLA-style generator, label weights
-- ``utils``     run logging, KITTI / TUM pose files
+- ``data``      the synthetic CARLA-style generator, the CARLA / FT3D /
+                KITTI readers, the ssfb native loader, label weights
+- ``utils``     run logging, KITTI / TUM pose files, PLY / BEV export
+- ``cli``       ``python -m ssf_slam_tpu_torch.cli run | evaluate | train
+                | eval-flow``
 - ``weights``   Flax <-> PyTorch parameter conversion, committed weights
 
 Entry points run on the card (``device="cuda"``) unless the caller passes

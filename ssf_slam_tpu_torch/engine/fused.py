@@ -5,9 +5,10 @@ Per scan: the current cloud's TFlow tower, the head against the cached
 tower of the previous scan, then the whole SLAM step (``engine/pipeline.py::
 slam_step``) on the previous cloud and its flow: plane features, the
 ego-motion (SSF: IRLS Kabsch under the joint seg head's static mask,
-``out[:, 3] < 0``; SF: a GMM split of [flow || xyz], the seg channel of a
-joint model unused), odometry integration and the seg-gated keyframe
-mapping back end.
+``out[:, 3] < 0``, or with ``seg_apply`` (ssfc) under the separate
+classifier's ``argmax == 0`` over [xyz || flow]; SF: a GMM split of
+[flow || xyz], the seg channel of a joint model unused), odometry
+integration and the seg-gated keyframe mapping back end.
 
 Tower caching: frame k's cloud-1 is frame k-1's cloud-2, so the previous
 scan's tower rides the carry ``(SlamState, tower_prev)``. A cached tower is
@@ -55,9 +56,14 @@ def stack_fused_scans(frames: list, n: int) -> dict:
     )
 
 
-def make_fused_step(model, cfg: PipelineConfig, box, use_gmm: bool = False):
+def make_fused_step(model, cfg: PipelineConfig, box, use_gmm: bool = False,
+                    seg_apply=None):
     """The step of SF (``use_gmm``) or SSF: the variant of ``cfg`` is set
-    to that. Returns ``(step, make_carry)``:
+    to that. ``seg_apply(pc [1, N, 3], flow [1, N, 3]) -> logits [1, N, 2]``
+    (ssfc, e.g. a ``SegNet``) makes SSF's static mask the classifier's
+    ``argmax == 0`` (a tie goes to class 0, static) instead of the joint
+    head's; the head's fourth channel is then unused. Returns
+    ``(step, make_carry)``:
     - ``step(carry, scan) -> (carry, outputs)`` for one scan dict of
       tensors {points [N, 3], prev [N, 3], mask [N], prev_mask [N], time}
       with ``carry = (SlamState, tower_prev)``;
@@ -79,7 +85,10 @@ def make_fused_step(model, cfg: PipelineConfig, box, use_gmm: bool = False):
                          time=scan["time"], flow_points=scan["prev"],
                          flow_mask=scan["prev_mask"],
                          flow=out[:, :3].float())
-        if not use_gmm:
+        if not use_gmm and seg_apply is not None:
+            logits = seg_apply(scan["prev"][None], slam_scan["flow"][None])
+            slam_scan["static_mask"] = torch.argmax(logits[0], -1) == 0
+        elif not use_gmm:
             slam_scan["static_mask"] = out[:, 3] < 0.0
         state, outputs = slam_step(state, slam_scan, cfg)
         outputs["flow"] = out
@@ -95,15 +104,19 @@ def make_fused_step(model, cfg: PipelineConfig, box, use_gmm: bool = False):
 def run_sequence_fused(model, frames: list,
                        cfg: PipelineConfig = PipelineConfig(),
                        device: str | torch.device = "cuda",
-                       box=None, use_gmm: bool = False) -> dict:
+                       box=None, use_gmm: bool = False,
+                       seg_apply=None, return_state: bool = False):
     """Frames (data/synthetic.py schema) -> per-frame outputs as numpy:
     the map pose pose_q [F, 4] / pose_t [F, 3], odom_q / odom_t, rel_q /
     rel_t, is_keyframe [F] bool, n_features and n_dyn_over [F] int32, and
     the network output flow [F, N, 3 | 4] (flow + seg logit of the pair
     (frame k-1, frame k), in frame k-1's point order). The variant is SF
-    with ``use_gmm``, else SSF, whatever ``cfg`` says. ``model`` must
+    with ``use_gmm``, else SSF (ssfc with ``seg_apply``, see
+    ``make_fused_step``), whatever ``cfg`` says. ``model`` must
     already live on ``device``. ``box`` defaults to the ``sequence_box`` of
-    the frames; pass a longer sequence's box to run a prefix of it."""
+    the frames; pass a longer sequence's box to run a prefix of it. With
+    ``return_state`` it returns (final SlamState, outputs), as the JAX
+    package's function does."""
     dev = resolve_device(device)
     if next(model.parameters()).device.type != dev.type:
         raise ValueError(f"model is not on {dev}")
@@ -113,11 +126,13 @@ def run_sequence_fused(model, frames: list,
     if box is None and model.cfg.neighbor_backend == "banded":
         box = sequence_box(arrays["points"], device=dev)
     scans = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
-    step, make_carry = make_fused_step(model, cfg, box, use_gmm)
+    step, make_carry = make_fused_step(model, cfg, box, use_gmm, seg_apply)
     outs = []
     with torch.inference_mode():
         carry = make_carry(scans["prev"][0])
         for k in range(len(frames)):
             carry, o = step(carry, {key: v[k] for key, v in scans.items()})
             outs.append(o)
+    if return_state:
+        return carry[0], stack_outputs(outs)
     return stack_outputs(outs)

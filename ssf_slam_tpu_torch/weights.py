@@ -7,6 +7,10 @@ flat float32 leaves keyed by their Flax path
 2,269,396 values. It was exported from the orbax checkpoint by
 ``tests/test_torch_weights.py --export``, which also pins it to the
 checkpoint; the card's machine has no orbax, so the port reads only the npz.
+``weights/segnet_r3.npz`` holds the ssfc classifier ``runs/segnet_r3/best``
+in the same layout (``params/sa1/PointMLP_0/Dense_0_part0/kernel``,
+``batch_stats/stem/BatchNorm_0/mean``, ...), exported and pinned by
+``tests/test_torch_segnet.py --export``.
 ``to_flax`` goes the other way, for the trainer's npz checkpoints and for
 comparing the port's parameters with JAX's.
 """
@@ -22,8 +26,9 @@ from ssf_slam_tpu_torch.config import FlowNetConfig
 from ssf_slam_tpu_torch.device import resolve_device
 from ssf_slam_tpu_torch.models.layers import BatchNorm
 
-DEFAULT_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "weights", "ssf_r3ft2.npz")
+_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights")
+DEFAULT_NPZ = os.path.join(_DIR, "ssf_r3ft2.npz")
+SEGNET_NPZ = os.path.join(_DIR, "segnet_r3.npz")
 
 # Flax leaf name -> (torch name, transpose)
 _LEAVES = {
@@ -105,4 +110,20 @@ def load_tflow(cfg: FlowNetConfig, path: str = DEFAULT_NPZ,
         for m in model.modules():
             if isinstance(m, AttentiveCostVolume):
                 m.fold_weights()
+    return model.to(dev).eval()
+
+
+def load_segnet(path: str = SEGNET_NPZ, dtype: str = "bfloat16",
+                device: str | torch.device = "cuda",
+                neighbor_backend: str = "banded"):
+    """The ssfc classifier (``models.segnet.SegNet`` with the JAX defaults)
+    with the weights of an npz, in eval mode on ``device``, its Dense
+    layers computing in ``dtype``: the model the JAX CLI builds for
+    ``--seg-ckpt`` (``SegNet(n_classes=2, dtype=bfloat16)``)."""
+    from ssf_slam_tpu_torch.models.segnet import SegNet
+
+    dev = resolve_device(device)
+    model = SegNet(n_classes=2, dtype=dtype,
+                   neighbor_backend=neighbor_backend)
+    model.load_state_dict(from_flax(load_npz(path)), strict=True)
     return model.to(dev).eval()

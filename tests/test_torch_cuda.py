@@ -810,3 +810,43 @@ def test_cuda_variant_step_adds_no_host_sync(cuda_dev, variant):
     assert sites, "no sync seen: the keyframe gate syncs on every frame"
     extra = [s for s in sites if s[:2] not in ALLOWED_SYNCS]
     assert not extra, f"host syncs outside the allowed sites: {extra}"
+
+
+# the ssfc classifier's banded launches per call at 8192 points: sa1
+# (1024 <- 8192) and fp1 (8192 <- 1024) take knn_group; sa2 and fp2 (1024 x
+# 256) fall under the work floor and take the exact path
+SEGNET_LAUNCHES = {"knn_group": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_segnet_matches_cpu(cuda_dev):
+    """SegNet at 8192 points with the committed weights on a street pair
+    ([xyz || ground-truth flow]): its kNN launches (two knn_group, nothing
+    else), float32 logits within 1e-4 of the CPU's and the static masks
+    equal; bf16 logits finite, with static masks equal to float32's on at
+    least 99.5 % of the points (bf16 moves logits near 0 across it)."""
+    from ssf_slam_tpu_torch.weights import load_segnet
+
+    f = _street_frames()[2]
+    xyz = torch.from_numpy(f["pos1"].astype(np.float32))[None]
+    flow = torch.from_numpy(f["gt"].astype(np.float32))[None]
+    out = {}
+    for dev in (torch.device("cpu"), cuda_dev):
+        for dtype in ("float32", "bfloat16"):
+            seg = load_segnet(dtype=dtype, device=dev)
+            banded.reset_launches()
+            with torch.inference_mode():
+                logits = seg(xyz.to(dev), flow.to(dev))[0].float().cpu()
+            launches = {k: v for k, v in banded.LAUNCHES.items() if v}
+            assert launches == (SEGNET_LAUNCHES if dev.type == "cuda"
+                                else {}), launches
+            assert bool(torch.isfinite(logits).all())
+            out[dev.type, dtype] = logits
+    torch.testing.assert_close(out["cuda", "float32"], out["cpu", "float32"],
+                               rtol=0, atol=1e-4)
+    static = {k: v.argmax(-1) == 0 for k, v in out.items()}
+    assert torch.equal(static["cuda", "float32"], static["cpu", "float32"])
+    assert 0 < int((~static["cuda", "float32"]).sum())
+    agree = (static["cuda", "bfloat16"]
+             == static["cuda", "float32"]).float().mean()
+    assert float(agree) >= 0.995, float(agree)
