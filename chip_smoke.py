@@ -32,23 +32,24 @@ printing its own line and failing loudly:
    computes the same function, and the bound of the card. Then
    knn_group and knn_idw, redesigned for the card, at every distinct shape
    their wrappers receive in a 2-frame run of the ssfc main path (SSF's
-   calls and the SegNet's two knn_group shapes; batch 1), and
-   at the level-0 shapes at batch 1 and 4, warm and with the L2 flushed
+   calls and the SegNet's two knn_group shapes; batch 1 and batch 8, the
+   batched serving path's, from eight distinct frame pairs' runs), and
+   at the level-0 shapes at batch 1, 4 and 8, warm and with the L2 flushed
    before each launch: exact against the plain version (knn_idw's output as
    above; float32 to 1e-5 relative) with the split S (lanes per query) the
    shipped library picks and with each measurement build's; timed as above
    and, to compare the splits, alone (queued behind a device-side sleep, so
    that no host work is timed) with each; knn and knn_group2 (f32 and
-   bf16 feats) the same way at the level-0 shape, batch 1 and 4, exact,
+   bf16 feats) the same way at the level-0 shape, batch 1, 4 and 8, exact,
    with knn's time beside knn_group's. cost_attention at both launches
    of a scan (8192 and 2048 points) and scatter_add at the level-0 shape,
-   batch 1 and 4, float32 and bf16 values, are timed alone too, the latter
+   batch 1, 4 and 8, float32 and bf16 values, are timed alone too, the latter
    with its device-memory atomics against one an entry and channel;
    scatter_softmax_sum alone with each value-load width build; regroup
    (exact) and scatter_softmax_sum (1e-5 + 1e-5 |want| beyond the rounding
    bound of two float32 sums in two orders, softmax_agreement) at every
-   distinct shape of the 2-frame run, at batch 1 and 4, timed beside their
-   plain versions and bounds;
+   distinct shape of the 2-frame run, at batch 1, 4 and 8, timed beside
+   their plain versions and bounds;
 3. f32: the committed weights over the first 8 bench frames through the
    whole SSF step against the JAX reference fixtures
    (tests/fixtures/torch_port/ssf_fused_ref.npz, ssf_slam_ref.npz):
@@ -135,7 +136,28 @@ printing its own line and failing loudly:
    of run_sequence_fused under the runner's box, a state checkpoint after
    4 of the 8 scans resumed in a fresh runner within RUN_TOL of the
    uninterrupted run, and in bf16 over the 32 frames at depth 1, 2, 2 and
-   1 in turns (Hz, completion latency mean and p95, dispatch mean and p95).
+   1 in turns (Hz, completion latency mean and p95, dispatch mean and p95);
+10. batched: many sequences on one card and SegNet training. (a) f32, the
+   committed weights, B = 2 (the first 8 frames of batch_economics.py's
+   sequences 0 and 1, its configuration): each member of
+   run_sequences_fused_batched against the same member run alone through
+   run_sequence_fused under the shared box, pose_t and odom_t within
+   LOOP_TOL (1e-3 m), is_keyframe equal; the no-model
+   run_sequences_batched (SEG, ground-truth flow) the same way against
+   run_sequence; (b) the batch-economics table in bf16
+   (ssf_slam_tpu_torch.parallel.batch_economics: 16 frames, B = 1, 2, 4,
+   8 under one box): for each B the aggregate and per-sequence scans/s
+   (median and range of the repeats), the kernel launches a scan (each
+   counter reset just before a run and read just after it, equal to phase
+   4's per-scan counts at every B: the network runs once a scan over the
+   batch), the peak memory, each member's ATE of pose_t (below 0.5 m)
+   and the card's name and power limit; (c) SegNet training
+   (train/train_segnet.py's step: bf16, 8192 points, batch 4, Adam at
+   1e-3, flow noise, the exact neighbour backend, so no hand-written
+   kernel runs): the loss on one fixed batch falling over SEG_STEPS steps,
+   steps/s and peak memory; and the f32 step of the small SegNet against
+   tests/fixtures/torch_port/segnet_train_small_ref.npz (loss 1e-4
+   relative, each leaf's gradient norm 1e-3 relative).
 
 With ``--profile DIR`` it then runs phases 5 and 4 three times more in
 turns (so that each setting runs first as often as the other) and prints
@@ -198,6 +220,8 @@ PER_STEP_BWD = {"scatter_add": 18}
 # the entry-point phase: one call of each, with gradients where they have
 PER_ENTRY = {"knn": 1, "knn_group2": 1, "attention": 1, "scatter_add": 2}
 TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS, DESCENT_STEPS = 4, 1e-4, 4, 8
+# the largest batch of the batched serving path (phase 10 b)
+SERVE_BATCH = 8
 TRAIN_FIXTURE = os.path.join(FIXTURES, "ssf_train_ref.npz")
 
 KERNELS = {  # name -> (CUDA source, the Pallas call it replaces)
@@ -736,17 +760,21 @@ def split_build(split: int):
     return cuda_build.variant(*SPLIT_BUILDS[SPLITS.index(split)])
 
 
-def main_path_calls(frames, dev) -> dict:
+def main_path_calls(frames, dev, pairs: int = 1) -> dict:
     """{kernel: {shape key: [inputs, calls]}} of knn_group, knn_idw,
     regroup and scatter_softmax_sum in a 2-frame bf16 run of the ssfc main
     path, which runs the SSF main path's calls and the SegNet's
     (fuse_attention off; the carry's tower, then two scans), the inputs of
-    each shape's first call kept."""
+    each shape's first call kept. With ``pairs`` > 1 it runs frame pairs
+    (0, 1), (2, 3), ... and joins each shape's inputs from those runs
+    along the batch axis, so that every member of the batch is a distinct
+    scan; the calls are those of the first run."""
     from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
     from ssf_slam_tpu_torch.ops import banded
 
-    seen = {name: {} for name in (*SPLIT_LAYERS, *BAND_KERNELS)}
-    wrapped = {name: getattr(banded, name) for name in seen}
+    names = (*SPLIT_LAYERS, *BAND_KERNELS)
+    wrapped = {name: getattr(banded, name) for name in names}
+    runs = []
 
     def spy(name):
         def call(*args):
@@ -760,22 +788,35 @@ def main_path_calls(frames, dev) -> dict:
                 key = (*idx.shape, vals.shape[-1],
                        str(vals.dtype).split(".")[-1], args[-1]
                        if name == "scatter_softmax_sum" else vals.shape[1])
-            if key not in seen[name]:
-                seen[name][key] = [map_inputs(args, torch.Tensor.clone), 0]
-            seen[name][key][1] += 1
+            seen = runs[-1][name]
+            if key not in seen:
+                seen[key] = [map_inputs(args, torch.Tensor.clone), 0]
+            seen[key][1] += 1
             return wrapped[name](*args)
         return call
 
     model, seg = bf16_model(dev, fuse=False), seg_model(dev)
-    for name in seen:
+    for name in names:
         setattr(banded, name, spy(name))
     try:
-        run_sequence_fused(model, frames[:2], device=dev, seg_apply=seg)
+        for i in range(pairs):
+            runs.append({name: {} for name in names})
+            run_sequence_fused(model, frames[2 * i:2 * i + 2], device=dev,
+                               seg_apply=seg)
     finally:
         for name, fn in wrapped.items():
             setattr(banded, name, fn)
     torch.cuda.synchronize()
-    return seen
+    first = runs[0]
+    for name, shapes in first.items():
+        for key, entry in shapes.items():
+            members = [r[name].get(key) for r in runs]
+            check(all(m is not None for m in members), "kernels",
+                  f"{name} {key}: a shape of pair 0 is missing from a "
+                  "later pair's run")
+            if pairs > 1 and all(m is not None for m in members):
+                entry[0] = join_inputs([m[0] for m in members])
+    return first
 
 
 def time_split(name: str, args, tag: str, cold: bool = False) -> float:
@@ -949,10 +990,22 @@ def map_inputs(args, fn) -> tuple:
                  fn(a) if isinstance(a, torch.Tensor) else a for a in args)
 
 
-def batch_of(args, bsz: int) -> tuple:
-    """One call's inputs (batch 1) repeated to batch bsz along their first
-    axis."""
-    return map_inputs(args, lambda t: t.repeat(bsz, *([1] * (t.dim() - 1))))
+def join_inputs(calls: list) -> tuple:
+    """The inputs of several calls of one banded kernel at one shape
+    joined along their batch axis (tensors and the plan's b0; the plan's
+    n_valid, k and the band params are those of the first call)."""
+    def join(i, a):
+        if isinstance(a, tuple) and isinstance(a[0], torch.Tensor):
+            return (torch.cat([c[i][0] for c in calls]), a[1])
+        if isinstance(a, torch.Tensor):
+            return torch.cat([c[i] for c in calls])
+        return a
+    return tuple(join(i, a) for i, a in enumerate(calls[0]))
+
+
+def first_members(args, bsz: int) -> tuple:
+    """A batched call's inputs cut to their first bsz members."""
+    return map_inputs(args, lambda t: t[:bsz].contiguous())
 
 
 def time_band(name: str, args, tag: str) -> None:
@@ -1040,37 +1093,44 @@ def time_train_scatters(shapes: dict, label: str, vecs: bool = False) -> None:
 
 def phase_shapes(frames, dev) -> None:
     """knn_group and knn_idw at every distinct shape of the main path's
-    scan, batch 1; at the level-0 shapes also at batch 4 (the training
-    step's) and cold. Each exact against its plain version at every split
-    S; times at each S. regroup (exact) and scatter_softmax_sum
-    (softmax_agreement) at every distinct shape of the scan, batch 1 and
-    4. Then scatter_add at the level-0 shape, batch 1 and 4, float32 and
-    bf16 values."""
+    scan, batch 1 and 8 (the batched serving path's, eight distinct frame
+    pairs' inputs; batch 4 their first four); at the level-0
+    shapes also at batch 4 (the training step's) and cold. Each exact
+    against its plain version at every split S; times at each S. regroup
+    (exact) and scatter_softmax_sum (softmax_agreement) at every distinct
+    shape of the scan, batch 1, 4 and 8. Then scatter_add at the level-0
+    shape, batch 1, 4 and 8, float32 and bf16 values."""
     from ssf_slam_tpu_torch.engine.fused import sequence_box, stack_fused_scans
     from ssf_slam_tpu_torch.ops import banded
     from ssf_slam_tpu_torch.ops import neighbors as nb
 
-    for name, shapes in main_path_calls(frames, dev).items():
+    # every shape's inputs from the runs of frame pairs (0, 1) ... (14, 15):
+    # eight distinct members, so that a kernel reading one member's rows
+    # for another's (a wrong batch stride) disagrees with its plain version
+    for name, shapes in main_path_calls(frames, dev, SERVE_BATCH).items():
         for key, (args, calls) in sorted(shapes.items()):
             tag = f"({calls} calls in the 2-scan run)"
             if name in SPLIT_LAYERS:
                 layer = SPLIT_LAYERS[name].get((key[1], key[2], key[3]), "?")
-                time_split(name, args, f"{layer} {tag}")
+                # batch 1 and the batched serving path's batch 8
+                for inputs in (first_members(args, 1), args):
+                    time_split(name, inputs, f"{layer} {tag}")
                 continue
-            # regroup and scatter_softmax_sum at batch 1 and, on the
-            # scan's inputs four times over, at the train step's batch 4
+            # regroup and scatter_softmax_sum at batch 1, the train step's
+            # batch 4 and the batched serving path's batch 8
             layer = BAND_LAYERS.get(key[1], "?")
-            for inputs in (args, batch_of(args, TRAIN_BATCH)):
+            for inputs in (first_members(args, 1),
+                           first_members(args, TRAIN_BATCH), args):
                 time_band(name, inputs, f"{layer} {tag}")
-    # level 0 at batch 1 and 4, warm and cold: frames 2i -> 2i + 1, each
-    # sorted under the sequence box as sorted_pair sorts frames 0 and 1
+    # level 0 at batch 1, 4 and 8, warm and cold: frames 2i -> 2i + 1,
+    # each sorted under the sequence box as sorted_pair sorts frames 0, 1
     scans = stack_fused_scans(frames, N_POINTS)
     box = sequence_box(scans["points"], device=dev)
     clouds = [nb.morton_sort(torch.as_tensor(scans["points"][i:i + 1],
                                              device=dev), box=box)[0]
-              for i in range(8)]
+              for i in range(2 * SERVE_BATCH)]
     gen = torch.Generator(device=dev).manual_seed(2)
-    for bsz in (1, 4):
+    for bsz in (1, TRAIN_BATCH, SERVE_BATCH):
         q = torch.cat(clouds[0:2 * bsz:2])
         p = torch.cat(clouds[1:2 * bsz:2])
         sparse = p[:, ::4].contiguous()
@@ -2440,6 +2500,192 @@ def phase_stream(frames, dev, smi: str) -> None:
               "stream", f"depth {depth}: {st}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: many sequences on one card, and SegNet training
+# ---------------------------------------------------------------------------
+
+BATCH_FRAMES, BATCH_REPEATS = 8, 3
+SEG_TRAIN_FIXTURE = os.path.join(FIXTURES, "segnet_train_small_ref.npz")
+SEG_STEPS, SEG_LR, SEG_NOISE = 8, 1e-3, 0.05
+
+
+def _members_vs_alone(got: dict, alone: list) -> tuple[float, float, bool]:
+    """(max |d pose_t|, max |d odom_t|, is_keyframe equal) of a batched
+    run's members against the same members run alone."""
+    dp = max(float(np.abs(got["pose_t"][b] - a["pose_t"]).max())
+             for b, a in enumerate(alone))
+    do = max(float(np.abs(got["odom_t"][b] - a["odom_t"]).max())
+             for b, a in enumerate(alone))
+    kf = all(np.array_equal(got["is_keyframe"][b], a["is_keyframe"])
+             for b, a in enumerate(alone))
+    return dp, do, kf
+
+
+def phase_batched(dev, smi: str) -> dict:
+    """(a) the batched runs against their members alone; (b) the
+    batch-economics table. Returns the kernel launches of the largest
+    batch's run."""
+    from ssf_slam_tpu_torch.config import PipelineConfig, Variant
+    from ssf_slam_tpu_torch.engine.fused import (
+        run_sequence_fused,
+        sequence_box,
+        stack_fused_scans,
+    )
+    from ssf_slam_tpu_torch.engine.pipeline import run_sequence
+    from ssf_slam_tpu_torch.parallel import batch_economics as be
+    from ssf_slam_tpu_torch.parallel.mesh import (
+        run_sequences_batched,
+        run_sequences_fused_batched,
+    )
+    from ssf_slam_tpu_torch.weights import load_tflow
+
+    cfg, net = be.economics_configs(dtype="float32")
+    seqs = be.make_sequences(max(be.BATCHES))
+    pair = [s[:BATCH_FRAMES] for s in seqs[:2]]
+    box = sequence_box(np.stack([stack_fused_scans(s, N_POINTS)["points"]
+                                 for s in pair]), device=dev)
+    f32 = load_tflow(net, device=dev)
+    _, got = run_sequences_fused_batched(f32, pair, cfg, device=dev, box=box)
+    alone = [run_sequence_fused(f32, s, cfg, device=dev, box=box)
+             for s in pair]
+    dp, do, kf = _members_vs_alone(got, alone)
+    say("batched", f"(a) run_sequences_fused_batched f32, B=2 x "
+        f"{BATCH_FRAMES} frames x {N_POINTS} points, each member against "
+        f"run_sequence_fused alone under the shared box: |d pose_t| "
+        f"{dp:.3g} m, |d odom_t| {do:.3g} m, keyframes equal {kf}")
+    check(dp <= LOOP_TOL and do <= LOOP_TOL and kf, "batched",
+          f"fused members differ from alone: {dp}, {do}, keyframes {kf}")
+    check(np.isfinite(got["flow"]).all(), "batched", "non-finite flow")
+    seg = PipelineConfig(variant=Variant.SEG)
+    _, got = run_sequences_batched(pair, seg, device=dev)
+    alone = [run_sequence(s, seg, device=dev)[1] for s in pair]
+    dp, do, kf = _members_vs_alone(got, alone)
+    say("batched", f"(a) run_sequences_batched SEG (ground-truth flow), "
+        f"B=2: |d pose_t| {dp:.3g} m, |d odom_t| {do:.3g} m against "
+        f"run_sequence alone, keyframes equal {kf}")
+    check(dp <= LOOP_TOL and do <= LOOP_TOL and kf, "batched",
+          f"SEG members differ from alone: {dp}, {do}, keyframes {kf}")
+
+    cfg, net = be.economics_configs()
+    model = load_tflow(net, device=dev)
+    rows = be.measure(model, seqs, cfg, be.BATCHES, BATCH_REPEATS, dev)
+    n_frames = len(seqs[0])
+    for r in rows:
+        say("batched", f"(b) {be.row_line(r)}; repeats "
+            + ", ".join(f"{a:.2f}" for a in r["agg"]) + f"; launches "
+            f"{r['launches']} ({smi})")
+        check(r["finite"] and max(r["ate"]) < 0.5, "batched",
+              f"B={r['b']}: ATE {r['ate']}")
+        for name in PER_SCAN:
+            want = PER_SCAN[name] * n_frames + PER_TOWER[name]
+            check(r["launches"].get(name, 0) == want, "batched",
+                  f"B={r['b']}: {name} launched "
+                  f"{r['launches'].get(name, 0)} times, expected {want}")
+        check(set(r["launches"]) <= set(PER_SCAN), "batched",
+              f"B={r['b']}: other kernels launched: {r['launches']}")
+    for line in be.table(rows).splitlines():
+        say("batched", f"(b) {line}")
+    last = rows[-1]
+    say("batched", f"(b) the kernels at B={last['b']}, launches a scan: "
+        + ", ".join(f"{k} {v / (last['b'] * n_frames):.4g}"
+                    for k, v in last["launches"].items()))
+    return last["launches"]
+
+
+def _seg_train_batch():
+    """The batch and flow noise of tests/test_torch_segnet_train.py."""
+    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
+
+    frames = generate_sequence(n_frames=2, n_points=1024, seed=5,
+                               noise=0.004, n_moving=6)
+    batch = dict(
+        xyz=np.stack([f["pos1"] for f in frames]).astype(np.float32),
+        flow=np.stack([f["gt"] for f in frames]).astype(np.float32),
+        labels=np.stack([f["s_fg_mask"] > 0.5 for f in frames]).astype(
+            np.int64),
+        mask=np.stack([f["mask1"] for f in frames]).astype(np.float32))
+    noise = (0.03 * np.random.default_rng(11).normal(
+        size=batch["flow"].shape)).astype(np.float32)
+    return batch, noise
+
+
+def phase_segnet_train(dev, smi: str) -> None:
+    """(c) SegNet training on the card."""
+    from ssf_slam_tpu_torch.data.carla import compute_label_weights
+    from ssf_slam_tpu_torch.models.layers import init_flax
+    from ssf_slam_tpu_torch.models.segnet import SegNet
+    from ssf_slam_tpu_torch.train import train_segnet as ts
+    from ssf_slam_tpu_torch.train.trainer import Adam
+    from ssf_slam_tpu_torch.weights import (
+        SEGNET_NPZ,
+        from_flax,
+        load_npz,
+        to_flax,
+    )
+
+    train, _ = ts.build_corpus(1, TRAIN_BATCH)
+    lw = compute_label_weights(train)
+    class_w = torch.as_tensor(lw, dtype=torch.float32, device=dev)
+    batch = next(ts.batches(train, TRAIN_BATCH, 0, dev))
+    model = init_flax(SegNet(n_classes=2, dtype="bfloat16"),
+                      torch.Generator().manual_seed(0)).to(dev)
+    tx = Adam(SEG_LR)
+    opt = tx.init(dict(model.named_parameters()))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    noises = [ts.flow_noise(batch["flow"].shape, SEG_NOISE, gen, dev)
+              for _ in range(SEG_STEPS + 1)]
+    ts.train_step(model, tx, opt, batch, noises[0], class_w)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all()
+    t0 = time.perf_counter()
+    losses = [ts.train_step(model, tx, opt, batch, n, class_w)
+              for n in noises[1:]]
+    losses = [float(x) for x in losses]  # ends on the host
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in read_all().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ev = {k: float(v) for k, v in ts.eval_metrics(
+        model, batch, torch.zeros_like(batch["flow"])).items()}
+    say("segtrain", f"(c) SegNet bf16, {TRAIN_BATCH} x {N_POINTS} points, "
+        f"one fixed batch, lr {SEG_LR}, flow noise U(0, {SEG_NOISE}): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {SEG_STEPS} steps "
+        f"({[round(x, 4) for x in losses]}), {SEG_STEPS / dt:.2f} steps/s "
+        f"(host clock), peak memory {peak:.2f} GiB, kernel launches "
+        f"{launches}; on the batch: {ev} ({smi})")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], "segtrain",
+          f"the fixed-batch loss did not fall: {losses}")
+    check(not launches, "segtrain", f"hand-written kernels ran: {launches}")
+
+    # the f32 step of the small SegNet against JAX's
+    with np.load(SEG_TRAIN_FIXTURE) as z:
+        ref = {k: z[k] for k in z.files}
+    host, noise = _seg_train_batch()
+    b = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    model = SegNet(n_classes=2, sa_npoints=(256, 64))
+    model.load_state_dict(from_flax(load_npz(SEGNET_NPZ)), strict=True)
+    model = model.to(dev).train()
+    params = dict(model.named_parameters())
+    logits = model(b["xyz"], b["flow"] + torch.as_tensor(noise, device=dev))
+    loss = ts.weighted_ce(logits, b["labels"], b["mask"],
+                          torch.as_tensor(ref["label_weights"], device=dev))
+    grads = to_flax(model, dict(zip(params, torch.autograd.grad(
+        loss, list(params.values())))))
+    d_loss = abs(loss.item() - float(ref["loss"])) / abs(float(ref["loss"]))
+    want = {k: np.linalg.norm(ref[f"grad/{k}"].astype(np.float64))
+            for k in grads}
+    err = _leaf_errors({k: np.linalg.norm(g) for k, g in grads.items()},
+                       want)
+    worst = max(err, key=err.get)
+    say("segtrain", f"(c) f32 step of the small SegNet vs the JAX fixture: "
+        f"loss {loss.item():.6f} vs {float(ref['loss']):.6f} ({d_loss:.2e} "
+        f"relative); gradient norms: {sum(e > 1e-3 for e in err.values())} "
+        f"of {len(err)} beyond 1e-3, worst {worst} {err[worst]:.2e}")
+    check(d_loss <= 1e-4, "segtrain", f"loss differs by {d_loss:.2e}")
+    check(err[worst] <= 1e-3, "segtrain",
+          f"gradient norm of {worst} differs by {err[worst]:.2e}")
+
+
 def main() -> int:
     args = sys.argv[1:]
     profile_dir = serve = None
@@ -2498,6 +2744,8 @@ def main() -> int:
     phase_ssfc(frames, dev, smi, launches, e2e["scans_per_s"])
     phase_cli(dev)
     phase_stream(frames, dev, smi)
+    phase_batched(dev, smi)
+    phase_segnet_train(dev, smi)
     kernels = []
     for name, r in records.items():
         src, replaces = KERNELS[name]

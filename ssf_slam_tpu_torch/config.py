@@ -233,3 +233,8 @@ class PipelineConfig:
 
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)
+
+
+def for_variant(variant: Variant, **kw) -> PipelineConfig:
+    """The default config of a pipeline variant."""
+    return PipelineConfig(variant=variant, **kw)

@@ -271,6 +271,19 @@ def stack_scans(frames: list, cfg: PipelineConfig,
     return out
 
 
+def run_sequence_scan(state: SlamState, scans: dict, cfg: PipelineConfig):
+    """``slam_step`` over stacked scans (tensors with a leading frame
+    axis, as ``stack_scans`` gives them) from ``state``: (final state,
+    per-frame outputs as numpy)."""
+    outs = []
+    with torch.inference_mode():
+        for k in range(len(scans["points"])):
+            state, o = slam_step(state, {key: v[k] for key, v in
+                                         scans.items()}, cfg)
+            outs.append(o)
+    return state, stack_outputs(outs)
+
+
 def run_sequence(frames: list, cfg: PipelineConfig,
                  flow_key: Optional[str] = None,
                  device: str | torch.device = "cuda"):
@@ -280,11 +293,4 @@ def run_sequence(frames: list, cfg: PipelineConfig,
     set_geom_precision()
     scans = {k: torch.as_tensor(v, device=dev)
              for k, v in stack_scans(frames, cfg, flow_key).items()}
-    state = init_slam_state(cfg, dev)
-    outs = []
-    with torch.inference_mode():
-        for k in range(len(frames)):
-            state, o = slam_step(state, {key: v[k] for key, v in
-                                         scans.items()}, cfg)
-            outs.append(o)
-    return state, stack_outputs(outs)
+    return run_sequence_scan(init_slam_state(cfg, dev), scans, cfg)

@@ -135,9 +135,11 @@ class StreamingRunner:
                                                  else first, n)
 
         def scan_of(f):
+            """The step's scan dict of frame f at batch 1."""
             pts, mask, t = self._to_device(f, n)
-            return dict(points=pts, prev=prev_pts, mask=mask,
-                        prev_mask=prev_mask, time=t)
+            return dict(points=pts[None], prev=prev_pts[None],
+                        mask=mask[None], prev_mask=prev_mask[None],
+                        time=t[None])
 
         pending: collections.deque = collections.deque()
         dispatch_ms: list[float] = []
@@ -157,12 +159,12 @@ class StreamingRunner:
 
         with torch.inference_mode():
             if warmup:
-                _, o = step(make_carry(prev_pts), scan_of(first))
-                o["pose_t"].cpu()
+                _, o = step(make_carry(prev_pts[None]), scan_of(first))
+                o[0]["pose_t"].cpu()
                 del o
-            carry = make_carry(prev_pts)
+            carry = make_carry(prev_pts[None])
             if state is not None:
-                carry = (state, carry[1])
+                carry = ([state], carry[1])
             t_start = time.perf_counter()
             for f in itertools.chain([first], it):
                 t0 = time.perf_counter()
@@ -177,9 +179,9 @@ class StreamingRunner:
                               "route's expected travel", file=sys.stderr)
                 scan = scan_of(f)
                 carry, outs = step(carry, scan)
-                host, event = self._readback(outs)
+                host, event = self._readback(outs[0])
                 dispatch_ms.append((time.perf_counter() - t0) * 1e3)
-                prev_pts, prev_mask = scan["points"], scan["mask"]
+                prev_pts, prev_mask = scan["points"][0], scan["mask"][0]
                 pending.append((t0, float(f["time"]), host, event))
                 if len(pending) >= self.pipeline_depth:
                     retire(pending.popleft())
@@ -189,7 +191,7 @@ class StreamingRunner:
             wall = time.perf_counter() - t_start
         if fh is not None:
             fh.close()
-        self.final_state = carry[0]
+        self.final_state = carry[0][0]
 
         lat = np.asarray(self.latencies_ms[-n_scans:])
         disp = np.asarray(dispatch_ms)

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from ssf_slam_tpu_torch.ops.morton import morton_codes
+from ssf_slam_tpu_torch.ops.morton import fma32, morton_codes
 
 Tensor = torch.Tensor
 
@@ -88,12 +88,6 @@ def plan_bands(query: Tensor, points: Tensor, query_tile: int, wblk: int,
 # ---------------------------------------------------------------------------
 
 
-def _fma(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
-    """float32 fused multiply-add, round(a * b + c): the float32 product is
-    exact in float64, so only the sum rounds (then once more to float32)."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 def _band_dist(dx: Tensor, dy: Tensor, dz: Tensor) -> Tensor:
     """Squared distance with the reference's rounding.
 
@@ -104,7 +98,7 @@ def _band_dist(dx: Tensor, dy: Tensor, dz: Tensor) -> Tensor:
     order at near-ties depend on these roundings, so the port computes
     exactly this; the CUDA kernel uses the same fused multiply-adds.
     """
-    return _fma(dz, dz, _fma(dx, dx, dy * dy))
+    return fma32(dz, dz, fma32(dx, dx, dy * dy))
 
 
 def _band_rows(b0: Tensor, wblk: int, wb: int) -> Tensor:

@@ -180,3 +180,27 @@ def quat_from_rpy(roll: Tensor, pitch: Tensor, yaw: Tensor) -> Tensor:
                         cr * sp * cy + sr * cp * sy,
                         cr * cp * sy - sr * sp * cy,
                         cr * cp * cy + sr * sp * sy], dim=-1)
+
+
+def pose_identity(device: str | torch.device = "cuda"):
+    """The identity pose (q [4], t [3]), float32, on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    from ssf_slam_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    return quat_identity(dev), torch.zeros(3, device=dev)
+
+
+def pose_from_rt(r_mat: Tensor, t: Tensor):
+    """(rotation matrix [..., 3, 3], t [..., 3]) -> pose (q, t)."""
+    return matrix_to_quat(r_mat), t
+
+
+def pose_to_mat4(pose) -> Tensor:
+    """Pose (q [..., 4], t [..., 3]) -> homogeneous [..., 4, 4]."""
+    q, t = pose
+    m = torch.zeros(q.shape[:-1] + (4, 4), dtype=q.dtype, device=q.device)
+    m[..., :3, :3] = quat_to_matrix(q)
+    m[..., :3, 3] = t
+    m[..., 3, 3] = 1.0
+    return m

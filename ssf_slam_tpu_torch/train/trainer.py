@@ -56,9 +56,11 @@ class AdamState:
 class Optimizer:
     """optax.chain(clip_by_global_norm(clip), add_decayed_weights(wd),
     scale_by_adam(b1, b2, eps), scale_by_learning_rate(schedule)) on
-    dicts of float32 tensors, updating the parameters in place."""
+    dicts of float32 tensors, updating the parameters in place; ``clip``
+    None and a weight decay of 0 leave those two steps out."""
 
-    def __init__(self, cfg: TrainConfig, batch_size: int, clip: float = 5.0,
+    def __init__(self, cfg: TrainConfig, batch_size: int,
+                 clip: Optional[float] = 5.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.cfg, self.batch_size = cfg, batch_size
         self.clip, self.b1, self.b2, self.eps = clip, b1, b2, eps
@@ -72,23 +74,41 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: dict, state: AdamState, params: dict) -> None:
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-        clipped = ~(g_norm < self.clip)  # optax's trigger, NaN included
+        if self.clip is not None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g)
+                                    for g in grads.values()))
+            clipped = ~(g_norm < self.clip)  # optax's trigger, NaN included
         count = state.count + 1
         # bias corrections in float32, as optax computes decay ** count
         bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(count))
         step_size = -self.lr(state.count)
         for name, p in params.items():
-            g = torch.where(clipped, (grads[name] / g_norm) * self.clip,
-                            grads[name])
-            g = g + self.cfg.weight_decay * p
+            g = grads[name]
+            if self.clip is not None:
+                g = torch.where(clipped, (g / g_norm) * self.clip, g)
+            if self.cfg.weight_decay:
+                g = g + self.cfg.weight_decay * p
             mu, nu = state.mu[name], state.nu[name]
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             p.add_(step_size * u)
         state.count = count
+
+
+class Adam(Optimizer):
+    """optax.adam(lr): Adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected
+    moments) at a constant learning rate, with no clipping and no weight
+    decay."""
+
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        super().__init__(TrainConfig(lr=lr, weight_decay=0.0), 1, clip=None,
+                         b1=b1, b2=b2, eps=eps)
+
+    def lr(self, count: int) -> float:
+        return self.cfg.lr
 
 
 @dataclasses.dataclass

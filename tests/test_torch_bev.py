@@ -19,6 +19,18 @@ seed-100 sequence at 8192 points and their plane features). Tolerances
 - ``refine_flow_pose``, accepted and rejected: q 1e-5, t 1e-4 m.
 The kNN expansion rounds as XLA's CPU compiler rounds it
 (``torch_ref.round_knn_like_xla_cpu``), as in tests/test_torch_variants.py.
+
+The tie that splits the ONLY_PC evo run (ROADMAP §3): frame 20 of the
+seed-100 sequence (40 frames x 8192 points, the default step), whose
+``bev_pose_init`` inputs are committed (``bev_tie_frame20.npz``, the
+port's ONLY_PC state there, within 1e-5 m of JAX's). There a windowed
+peak's overlap count (64) equals its neighbour's exactly, so the
+local-max test ``c0 >= max(nb)`` is decided by each FFT's rounding: JAX
+reads 63.999996 against 64 and drops the candidate, the port reads 64
+against 64 and keeps it, and the two pick other yaws. The fixture is made
+by
+
+    python tests/test_torch_bev.py --make-fixture
 """
 
 from __future__ import annotations
@@ -245,3 +257,89 @@ def test_refine_flow_pose_matches_jax(street, gate):
     assert (moved > 1e-3) == (gate == "accepted"), moved
     np.testing.assert_allclose(got[0].numpy(), want[0], atol=Q_TOL)
     np.testing.assert_allclose(got[1].numpy(), want[1], atol=T_TOL)
+
+
+TIE_REF = os.path.join(torch_ref.FIXTURE_DIR, "bev_tie_frame20.npz")
+TIE_FRAME, TIE_YAW = 20, 6  # the frame and the yaw candidate of the tie
+
+
+def make_tie_fixture(path: str = TIE_REF) -> None:
+    """The inputs of ``bev_pose_init`` at frame 20 of the port's ONLY_PC
+    run over the seed-100 sequence (the default step)."""
+    from ssf_slam_tpu_torch import config as tc
+    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
+    from ssf_slam_tpu_torch.engine.pipeline import run_sequence
+    from ssf_slam_tpu_torch.odometry import bev_init
+
+    frames = generate_sequence(n_frames=TIE_FRAME + 1, n_points=8192,
+                               seed=100, noise=0.004, n_moving=4)
+    calls, plain = [], bev_init.bev_pose_init
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return plain(*args, **kw)
+
+    bev_init.bev_pose_init = spy
+    try:
+        run_sequence(frames, tc.PipelineConfig(), device="cpu")
+    finally:
+        bev_init.bev_pose_init = plain
+    args, kw = calls[-1]  # frame 0 has no pair: call k is frame k + 1
+    np.savez(path, **dict(zip(("curr_xyz", "curr_mask", "last_xyz",
+                               "last_mask"), (a.numpy() for a in args))),
+             pred_t=kw["pred_t"].numpy(), plaus_gate=kw["plaus_gate"],
+             plaus_rel=kw["plaus_rel"])
+    print(f"wrote {path}")
+
+
+def test_bev_local_max_tie_splits_the_packages():
+    import jax.numpy as jnp
+
+    from ssf_slam_tpu.odometry import bev_init as jb
+    from ssf_slam_tpu_torch.odometry import bev_init as tb
+
+    with np.load(TIE_REF) as z:
+        ref = {k: z[k] for k in z.files}
+    args = [ref[k] for k in ("curr_xyz", "curr_mask", "last_xyz",
+                             "last_mask")]
+    kw = dict(plaus_gate=float(ref["plaus_gate"]),
+              plaus_rel=float(ref["plaus_rel"]))
+    jy, jt = _np(jb.bev_pose_init(*map(jnp.asarray, args),
+                                  pred_t=jnp.asarray(ref["pred_t"]), **kw))
+    ty, tt = tb.bev_pose_init(*map(_t, args), pred_t=_t(ref["pred_t"]),
+                              **kw)
+    yaws = tb._yaw_candidates(0.1, 11, "cpu")
+    # the packages pick other yaws: JAX -0.04 rad, the port +0.02
+    assert int(np.argmin(np.abs(yaws.numpy() - float(jy)))) == 3
+    assert int(np.argmin(np.abs(yaws.numpy() - float(ty)))) == TIE_YAW
+    # per yaw, every score is the same whole count in both packages, and
+    # only the windowed peak's local-max flag at the tied yaw differs
+    c, s = torch.cos(yaws)[:, None], torch.sin(yaws)[:, None]
+    xyz = _t(args[0])
+    rot = torch.stack([xyz[None, :, 0] * c - xyz[None, :, 1] * s,
+                       xyz[None, :, 0] * s + xyz[None, :, 1] * c,
+                       xyz[None, :, 2].expand(11, -1)], dim=-1)
+    pred = _t(ref["pred_t"])
+    t_out = [a.numpy() for a in tb._correlate(
+        rot, _t(args[1]), _t(args[2]), _t(args[3]), 0.25, 64.0, 8.0, -1.2,
+        pred_t=pred, plaus_gate=kw["plaus_gate"])]
+    j_out = [_np(jb._correlate(jnp.asarray(rot[i].numpy()),
+                               *map(jnp.asarray, args[1:]), 0.25, 64.0, 8.0,
+                               -1.2, pred_t=jnp.asarray(ref["pred_t"]),
+                               plaus_gate=kw["plaus_gate"]))
+             for i in range(11)]
+    for k in (1, 3):  # the global and the windowed scores
+        want = np.array([o[k] for o in j_out])
+        np.testing.assert_allclose(t_out[k], want, atol=1e-4)
+        np.testing.assert_array_equal(np.rint(t_out[k]), np.rint(want))
+    flags = np.array([bool(o[4]) for o in j_out])
+    differ = np.nonzero(t_out[4] != flags)[0]
+    assert differ.tolist() == [TIE_YAW]
+    assert t_out[4][TIE_YAW] and not flags[TIE_YAW]
+    assert t_out[3][TIE_YAW] == 64.0 and j_out[TIE_YAW][3] < 64.0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--make-fixture"]:
+        sys.exit("usage: python tests/test_torch_bev.py --make-fixture")
+    make_tie_fixture()

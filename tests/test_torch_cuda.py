@@ -850,3 +850,59 @@ def test_cuda_segnet_matches_cpu(cuda_dev):
     agree = (static["cuda", "bfloat16"]
              == static["cuda", "float32"]).float().mean()
     assert float(agree) >= 0.995, float(agree)
+
+
+# the small TFlow (banded at level 0: 1024 x 1024 meets the work floor) and
+# the small SLAM step without loop closure and scan-to-map refine, as
+# tests/test_torch_parallel.py runs them on the CPU
+SMALL_NET = dict(npoint=1024, sa_npoints=(512, 256, 128, 64),
+                 joint_seg=True, neighbor_backend="banded")
+BATCHED_TOL = 1e-3  # m: the scatters' float32 atomics differ run to run
+
+
+@pytest.mark.cuda
+def test_cuda_fused_batched_matches_members_alone(cuda_dev):
+    """run_sequences_fused_batched at B = 2 (4 frames x 1024 points, f32,
+    the committed weights) against each member run alone through
+    run_sequence_fused under the shared box: pose_t and odom_t within
+    1e-3 m, is_keyframe equal, and the batched run's kernel launches equal
+    to one member's alone (the network runs once a scan over the batch)."""
+    from ssf_slam_tpu_torch import config as tc
+    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
+    from ssf_slam_tpu_torch.engine.fused import (
+        run_sequence_fused,
+        sequence_box,
+        stack_fused_scans,
+    )
+    from ssf_slam_tpu_torch.parallel.mesh import run_sequences_fused_batched
+    from ssf_slam_tpu_torch.weights import load_tflow
+
+    seqs = [generate_sequence(n_frames=4, n_points=1024, seed=100 + b,
+                              noise=0.004, n_moving=4) for b in range(2)]
+    cfg = tc.PipelineConfig(
+        variant=tc.Variant.SSF, lidar=tc.LidarConfig(max_points=1024),
+        features=tc.FeatureConfig(max_features=512, plane_curv_max_16=1.0,
+                                  plane_stride_16=1),
+        mapping=tc.MappingConfig(
+            max_keyframes=16, submap_points=1024, icp_iters=4,
+            loop_submap_halfwidth=2, refine_submap_points=512,
+            refine_stride=1, refine_min_inliers=16, keyframe_trans_gate=2.0,
+            enable_loop_closure=False, scan_to_map_refine=False))
+    model = load_tflow(tc.FlowNetConfig(**SMALL_NET), device=cuda_dev)
+    box = sequence_box(np.stack([stack_fused_scans(s, 1024)["points"]
+                                 for s in seqs]), device=cuda_dev)
+    banded.reset_launches()
+    _, got = run_sequences_fused_batched(model, seqs, cfg, device=cuda_dev,
+                                         box=box)
+    batched = dict(banded.LAUNCHES)
+    assert batched["knn_group"] > 0
+    for b, seq in enumerate(seqs):
+        banded.reset_launches()
+        alone = run_sequence_fused(model, seq, cfg, device=cuda_dev, box=box)
+        assert dict(banded.LAUNCHES) == batched
+        for key in ("pose_t", "odom_t"):
+            np.testing.assert_allclose(got[key][b], alone[key],
+                                       atol=BATCHED_TOL, err_msg=key)
+        np.testing.assert_array_equal(got["is_keyframe"][b],
+                                      alone["is_keyframe"])
+        assert np.isfinite(got["flow"][b]).all()
