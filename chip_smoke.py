@@ -157,7 +157,31 @@ printing its own line and failing loudly:
    kernel runs): the loss on one fixed batch falling over SEG_STEPS steps,
    steps/s and peak memory; and the f32 step of the small SegNet against
    tests/fixtures/torch_port/segnet_train_small_ref.npz (loss 1e-4
-   relative, each leaf's gradient norm 1e-3 relative).
+   relative, each leaf's gradient norm 1e-3 relative);
+11. sharded: torch.distributed at world size 1 over NCCL on the card (no
+   fallback to another backend). (a) run_sequences_sharded at the serving
+   point (SSF, bf16, the committed weights, the first 8 bench frames):
+   every serving counter equal to phase 4's per-scan counts (reset just
+   before, read just after), its poses within 3 times the larger of
+   LOOP_TOL (1e-3 m) and the spread of three bf16 run_sequence_fused runs
+   under the same box (the scatters' float32 atomics order differs run to
+   run) of each of them; in f32 the same pair within LOOP_TOL;
+   run_sequences_sharded_streaming from an ssfb stripe at depth 1 and 2
+   (hz_per_seq, latency: the sharded row of scripts/bench_streaming.py)
+   against the batch run under the stream's anchored box, in bf16 within
+   the same bound, in f32 within LOOP_TOL; one f32 make_sharded_train_step on
+   the first two bench pairs against make_train_step (loss 1e-5 relative,
+   99.9 % of the parameters within 1e-6 and all within 2.5 lr, Adam's
+   sign edge; statistics 1e-4), its forward and backward kernels counted;
+   (b) pointsharded_knn_group, banded, 8192 x 8192, k 16, C 99, halo 512
+   (scripts/pointshard_chip_smoke.py's case): knn_group launched, recall
+   above 0.9 against pointshard_reference, grouped rows exact copies, the
+   kernel on the extended target equal to its plain version and the
+   sharded result its translation; (c) Town02 code on a generated planar
+   map (written to a temporary KITTI .bin, data/town02.py::MAP_BIN pointed
+   at it; not Town02): make_frames with 4 vehicles and facades, then
+   eval_town02 at 8192 points in bf16 over 6 pairs, finite ATE, EPE3D,
+   Acc3DR and moving IoU.
 
 With ``--profile DIR`` it then runs phases 5 and 4 three times more in
 turns (so that each setting runs first as often as the other) and prints
@@ -2686,6 +2710,320 @@ def phase_segnet_train(dev, smi: str) -> None:
           f"gradient norm of {worst} differs by {err[worst]:.2e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: sharding over torch.distributed at world size 1, and Town02
+# ---------------------------------------------------------------------------
+
+SHARD_FRAMES, SHARD_MARGIN = 8, 100.0
+# bf16 sharded runs against BF16_ALONE runs alone: within BF16_SPREADS
+# times the larger of the alone runs' spread and LOOP_TOL (readings, PERF.md
+# §6: sharded against alone 4.08e-4 to 1.16e-3 m, alone against alone
+# 6.73e-4 to 1.22e-3 m)
+BF16_ALONE, BF16_SPREADS = 3, 3.0
+POINTSHARD = dict(k=16, c=99, halo=512)
+TOWN02_FRAMES = 6
+PLAIN_KEYS = ("pos1", "pos2", "gt", "mask1", "s_fg_mask")
+
+
+def write_planar_map(path: str, seed: int = 0, spacing: float = 0.5) -> int:
+    """A KITTI .bin (x, y, z, intensity float32 rows) inside the Town02
+    map's extent (x in [-9, 195], y in [-308, -103], z = -2.5): streets
+    8 m wide every 40 m. A generated map, not Town02."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.arange(-9.0, 195.0, spacing),
+                         np.arange(-308.0, -103.0, spacing), indexing="ij")
+    road = ((np.abs((gx + 9.0) % 40.0 - 20.0) < 4.0)
+            | (np.abs((gy + 308.0) % 40.0 - 20.0) < 4.0))
+    x = gx[road] + rng.uniform(-0.1, 0.1, road.sum())
+    y = gy[road] + rng.uniform(-0.1, 0.1, road.sum())
+    rows = np.stack([x, y, np.full_like(x, -2.5), rng.uniform(0, 1, x.size)],
+                    1).astype(np.float32)
+    rows.tofile(path)
+    return len(rows)
+
+
+def phase_sharded(frames, dev, smi: str) -> dict:
+    """(a) the sharded serving, streaming and training paths at world size
+    1 over NCCL on the card. Returns the launches of each path's run."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ssf_slam_tpu_torch.config import (FlowNetConfig, LossConfig,
+                                           PipelineConfig, TrainConfig)
+    from ssf_slam_tpu_torch.data.carla import compute_label_weights
+    from ssf_slam_tpu_torch.data.ssfb import SsfbStripe, write_ssfb
+    from ssf_slam_tpu_torch.engine.fused import run_sequence_fused
+    from ssf_slam_tpu_torch.parallel.mesh import (
+        anchored_box,
+        make_mesh,
+        make_sharded_train_step,
+        run_sequences_sharded,
+        run_sequences_sharded_streaming,
+        shard_batch,
+    )
+    from ssf_slam_tpu_torch.train.trainer import (
+        create_train_state,
+        make_train_step,
+        to_device,
+    )
+    from ssf_slam_tpu_torch.weights import load_tflow, to_flax
+
+    mesh = make_mesh(1, device="cuda")
+    say("sharded", f"mesh: rank {mesh.rank} of {mesh.world_size}, backend "
+        f"{dist.get_backend()}, device {mesh.device}")
+    check(dist.get_backend() == "nccl" and mesh.device.type == "cuda",
+          "sharded", f"backend {dist.get_backend()} on {mesh.device}")
+    seq = frames[:SHARD_FRAMES]
+    cfg = PipelineConfig()
+    model = bf16_model(dev, fuse=False)
+    f32 = load_tflow(FlowNetConfig(npoint=N_POINTS, joint_seg=True,
+                                   dtype="float32",
+                                   neighbor_backend="banded"), device=dev)
+    run_sequences_sharded([seq[:2]], cfg, mesh, model=model)  # warm-up
+    torch.cuda.synchronize()
+    reset_all()
+    t0 = time.perf_counter()
+    states, got = run_sequences_sharded([seq], cfg, mesh, model=model)
+    dt = time.perf_counter() - t0
+    serve = {k: v for k, v in read_all().items() if v}
+    # bf16 runs of one step differ from run to run: the scatters' float32
+    # atomics sum in another order each time, and bf16 rounds that up
+    # (4e-4 to 1.2e-3 m over 8 frames). So bf16 is held against every one
+    # of BF16_ALONE runs alone within BF16_SPREADS times the larger of
+    # their own spread and LOOP_TOL, and f32 (runs of one step within
+    # ~1e-5 m) within LOOP_TOL
+    alone = [run_sequence_fused(model, seq, cfg, device=dev)
+             for _ in range(BF16_ALONE)]
+    spread = max(float(np.abs(a["pose_t"] - b["pose_t"]).max())
+                 for i, a in enumerate(alone) for b in alone[i + 1:])
+    bf16_tol = BF16_SPREADS * max(spread, LOOP_TOL)
+    pairs = [_members_vs_alone(got, [a]) for a in alone]
+    dp, do = max(p[0] for p in pairs), max(p[1] for p in pairs)
+    kf = all(p[2] for p in pairs)
+    say("sharded", f"(a) run_sequences_sharded, SSF bf16, {SHARD_FRAMES} x "
+        f"{N_POINTS} points: {SHARD_FRAMES / dt:.2f} scans/s (host clock), "
+        f"against {BF16_ALONE} run_sequence_fused runs under the same box "
+        f"|d pose_t| {dp:.3g} m, |d odom_t| {do:.3g} m, keyframes equal "
+        f"{kf} (the alone runs apart by up to {spread:.3g} m; bound "
+        f"{bf16_tol:.3g} m); launches {serve}")
+    check(len(states) == 1 and got["pose_t"].shape == (1, SHARD_FRAMES, 3)
+          and np.isfinite(got["pose_t"]).all(), "sharded",
+          f"outputs {got['pose_t'].shape}")
+    check(dp <= bf16_tol and do <= bf16_tol, "sharded",
+          f"bf16 sharded run differs from alone: {dp}, {do} m against "
+          f"{bf16_tol} m")
+    for name in PER_SCAN:
+        want = PER_SCAN[name] * SHARD_FRAMES + PER_TOWER[name]
+        check(serve.get(name, 0) == want, "sharded",
+              f"{name} launched {serve.get(name, 0)} times, expected {want}")
+    _, got32 = run_sequences_sharded([seq], cfg, mesh, model=f32)
+    alone32 = run_sequence_fused(f32, seq, cfg, device=dev)
+    dp, do, kf = _members_vs_alone(got32, [alone32])
+    say("sharded", f"(a) run_sequences_sharded f32 against "
+        f"run_sequence_fused under the same box: |d pose_t| {dp:.3g} m, "
+        f"|d odom_t| {do:.3g} m, keyframes equal {kf}")
+    check(dp <= LOOP_TOL and do <= LOOP_TOL and kf, "sharded",
+          f"sharded run differs from alone: {dp}, {do}, keyframes {kf}")
+
+    # streaming: the rate in bf16, the poses against the batch run under
+    # the stream's box in f32
+    box = anchored_box(seq[0]["pos1"][:N_POINTS], SHARD_MARGIN, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "seq.ssfb")
+        write_ssfb(seq, path)
+        for label, net in (("bf16", model), ("f32", f32)):
+            _, anchored = run_sequences_sharded([seq], cfg, mesh, model=net,
+                                                box=box)
+            for depth in (1, 2):
+                stripe = SsfbStripe([path])
+                try:
+                    _, streamed, stats = run_sequences_sharded_streaming(
+                        stripe.batches(), cfg, mesh, net,
+                        box_margin=SHARD_MARGIN, pipeline_depth=depth)
+                finally:
+                    stripe.close()
+                d = float(np.abs(streamed["pose_t"]
+                                 - anchored["pose_t"]).max())
+                say("sharded", f"(a) run_sequences_sharded_streaming {label}"
+                    f" depth {depth}: hz_per_seq {stats['hz_per_seq']:.2f}, "
+                    f"latency mean {stats['latency_ms_mean']:.2f} ms p95 "
+                    f"{stats['latency_ms_p95']:.2f} ms, step "
+                    f"{stats['step_ms_mean']:.2f} ms; |d pose_t| against the "
+                    f"batch run under the stream's box {d:.3g} m ({smi})")
+                check(stats["n_scans"] == SHARD_FRAMES
+                      and np.isfinite(streamed["pose_t"]).all(), "sharded",
+                      f"depth {depth}: {stats['n_scans']} scans")
+                tol = LOOP_TOL if label == "f32" else bf16_tol
+                check(d <= tol, "sharded",
+                      f"{label} depth {depth}: |d pose_t| {d} against {tol}")
+    del f32
+
+    # one f32 train step, sharded and in one process, on the first two
+    # bench pairs
+    net = FlowNetConfig(npoint=N_POINTS, joint_seg=True, dtype="float32",
+                        neighbor_backend="banded")
+    lw = compute_label_weights(seq[:2])
+    batch = {k: np.stack([f[k] for f in seq[:2]]).astype(np.float32)
+             for k in PLAIN_KEYS}
+    tcfg = TrainConfig(batch_size=2)
+    loss_cfg = LossConfig(seg_class_weights=(float(lw[0]), float(lw[1])))
+    runs = {}
+    for name in ("one", "sharded"):
+        m = load_tflow(net, device=dev).train()
+        state, tx = create_train_state(m, tcfg)
+        if name == "sharded":
+            step = make_sharded_train_step(m, tx, mesh, tcfg, loss_cfg)
+            torch.cuda.synchronize()
+            reset_all()
+            state, met = step(state, shard_batch(batch, mesh))
+            torch.cuda.synchronize()
+            train = {k: v for k, v in read_all().items() if v}
+        else:
+            step = make_train_step(m, tx, tcfg, loss_cfg)
+            state, met = step(state, to_device(batch, dev))
+        runs[name] = (float(met["loss"]), to_flax(m))
+    (l1, p1), (l2, p2) = runs["one"], runs["sharded"]
+    d_loss = abs(l2 - l1) / abs(l1)
+    diffs = np.concatenate([np.abs(p2[k] - p1[k]).reshape(-1) for k in p1
+                            if k.startswith("params/")])
+    stat_err = max(float(np.abs(p2[k] - p1[k]).max() / (np.abs(p1[k]).max()
+                                                         + 1e-6))
+                   for k in p1 if k.startswith("batch_stats/"))
+    exact = float((diffs <= 1e-6).mean())
+    say("sharded", f"(a) make_sharded_train_step f32, 2 x {N_POINTS} "
+        f"points: loss {l2:.6f} against make_train_step's {l1:.6f} "
+        f"({d_loss:.2e} relative); parameters after the step within 1e-6 "
+        f"for {exact:.6f} of the elements, max {diffs.max():.3g} (Adam's "
+        f"first step is lr g / (|g| + eps): 2 lr where a gradient's sign is "
+        f"rounding's); batch statistics within {stat_err:.2e} relative; "
+        f"launches {train}")
+    check(d_loss <= 1e-5, "sharded", f"loss differs by {d_loss:.2e}")
+    check(exact >= 0.999 and diffs.max() <= 2.5 * tcfg.lr and
+          stat_err <= 1e-4, "sharded",
+          f"parameters {exact} / {diffs.max()}, statistics {stat_err}")
+    check(train.get("scatter_add", 0) > 0 and train.get("knn_group", 0) > 0,
+          "sharded", f"the train step's kernels: {train}")
+    return dict(serve=serve, train=train)
+
+
+def phase_pointshard(dev, smi: str) -> dict:
+    """(b) pointsharded_knn_group on the banded backend at world size 1
+    (both halo flanks wrap) at 8192 x 8192: the knn_group kernel launched,
+    recall against pointshard_reference, grouped rows exact copies, and the
+    kernel's output on the extended target equal to its plain version's."""
+    from ssf_slam_tpu_torch.data.synthetic import generate_sequence
+    from ssf_slam_tpu_torch.ops.neighbors import (
+        cloud_box,
+        morton_sort,
+        nn_knn_group,
+    )
+    from ssf_slam_tpu_torch.parallel.mesh import make_mesh
+    from ssf_slam_tpu_torch.parallel.pointshard import (
+        pointshard_reference,
+        pointsharded_knn_group,
+    )
+
+    mesh = make_mesh(1, device="cuda")
+    k, c, halo = POINTSHARD["k"], POINTSHARD["c"], POINTSHARD["halo"]
+    fr = generate_sequence(n_frames=2, n_points=N_POINTS, seed=0,
+                           n_moving=4, radius=30.0)[0]
+    q = torch.as_tensor(np.asarray(fr["pos1"], np.float32), device=dev)
+    feats = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(N_POINTS, c)).astype(np.float32), device=dev)
+
+    def run():
+        return pointsharded_knn_group(q, q, feats, k, mesh, halo=halo,
+                                      backend="banded")
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    reset_all()
+    d, idx, grouped = run()
+    torch.cuda.synchronize()
+    launches = {kk: v for kk, v in read_all().items() if v}
+    ms = cuda_ms(run)
+    _, i_ref, _ = pointshard_reference(q, q, feats, k, device=dev)
+    idx_np, ref_np = idx.cpu().numpy(), i_ref.cpu().numpy()
+    hits = sum(len(set(idx_np[i]) & set(ref_np[i]))
+               for i in range(0, N_POINTS, 4))
+    recall = hits / (len(range(0, N_POINTS, 4)) * k)
+    box = cloud_box(q[None], q[None])
+    q_sorted, perm = morton_sort(q[None], box=box)
+    f_sorted = feats[perm[0]]
+    copies = bool(torch.equal(grouped, f_sorted[idx.long()]))
+    # the kernel against its plain version on the same extended target
+    t = q_sorted[0]
+    ext = torch.cat([torch.full((halo, 3), -1e6, device=dev), t,
+                     torch.full((halo, 3), 1e6, device=dev)])
+    f_ext = torch.cat([f_sorted[-halo:], f_sorted, f_sorted[:halo]])
+    i_k, g_k, _, _ = nn_knn_group(t[None], ext[None], f_ext[None], k,
+                                  backend="banded", box=box)
+    cpu_box = (box[0].cpu(), box[1].cpu())
+    i_p, g_p, _, _ = nn_knn_group(t[None].cpu(), ext[None].cpu(),
+                                  f_ext[None].cpu(), k, backend="banded",
+                                  box=cpu_box)
+    same = bool(torch.equal(i_k.cpu(), i_p) and torch.equal(g_k.cpu(), g_p))
+    inv = torch.argsort(perm[0])
+    via = torch.clamp(i_k[0].long() - halo, 0, N_POINTS - 1)[inv]
+    same_path = bool(torch.equal(via.to(idx.dtype), idx))
+    say("pointshard", f"(b) pointsharded_knn_group banded, world size 1, "
+        f"{N_POINTS} x {N_POINTS}, k {k}, C {c}, halo {halo}: recall "
+        f"{recall:.4f} against the one-device oracle (every query is rank "
+        f"0's), grouped rows exact copies {copies}, the kernel on the "
+        f"extended target equal to its plain version {same}, the sharded "
+        f"result its translation {same_path}; {ms:.3f} ms a call (events, "
+        f"host work included); launches {launches} ({smi})")
+    check(launches.get("knn_group", 0) > 0, "pointshard",
+          f"knn_group not launched: {launches}")
+    check(recall > 0.9, "pointshard", f"recall {recall}")
+    check(copies and same and same_path, "pointshard",
+          f"copies {copies}, plain {same}, translation {same_path}")
+    check(torch.isfinite(d).all().item(), "pointshard", "non-finite sqdist")
+    return launches
+
+
+def phase_town02(dev, smi: str) -> None:
+    """(c) the Town02 code on a generated planar map: make_frames with 4
+    vehicles and structures, then eval_town02 at 8192 points in bf16."""
+    import tempfile
+
+    from ssf_slam_tpu_torch.data import town02
+    from ssf_slam_tpu_torch.engine import eval_town02
+    from ssf_slam_tpu_torch.weights import DEFAULT_NPZ
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "planar-map.bin")
+        n_rows = write_planar_map(path)
+        saved, town02.MAP_BIN = town02.MAP_BIN, path
+        try:
+            raw, poses = town02.make_frames(TOWN02_FRAMES, n_vehicles=4,
+                                            structures=True)
+            movers = sum(int(f["s_fg_mask"].sum()) for f in raw)
+            reset_all()
+            t0 = time.perf_counter()
+            agg = eval_town02.evaluate(eval_town02.parse_args([
+                "--ckpt", DEFAULT_NPZ, "--frames", str(TOWN02_FRAMES),
+                "--vehicles", "4", "--structures", "--n-points",
+                str(N_POINTS), "--device", "cuda"]))
+            dt = time.perf_counter() - t0
+            launches = {k: v for k, v in read_all().items() if v}
+        finally:
+            town02.MAP_BIN = saved
+    say("town02", f"(c) generated map, not Town02 ({n_rows} map rows): "
+        f"make_frames {len(raw)} pairs, {movers} mover points; eval_town02 "
+        f"bf16, {N_POINTS} points: ATE {agg['ate_m']:.4f} m, EPE3D "
+        f"{agg['epe3d']:.4f} m, Acc3DR {agg['acc3d_relax']:.4f}, moving IoU "
+        f"{agg.get('iou_moving', float('nan')):.4f}, {dt:.1f} s; launches "
+        f"{launches} ({smi})")
+    check(len(raw) == TOWN02_FRAMES and len(poses) == TOWN02_FRAMES + 1
+          and movers > 0, "town02", f"{len(raw)} pairs, {movers} movers")
+    check(all(np.isfinite(v) for v in agg.values()), "town02",
+          f"non-finite metrics {agg}")
+    check(launches.get("knn_group", 0) > 0, "town02",
+          f"the serving kernels did not run: {launches}")
+
+
 def main() -> int:
     args = sys.argv[1:]
     profile_dir = serve = None
@@ -2746,6 +3084,15 @@ def main() -> int:
     phase_stream(frames, dev, smi)
     phase_batched(dev, smi)
     phase_segnet_train(dev, smi)
+    sharded = phase_sharded(frames, dev, smi)
+    pointshard = phase_pointshard(dev, smi)
+    phase_town02(dev, smi)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    say("sharded", "launches of the sharded paths: serving "
+        f"{sharded['serve']}, training {sharded['train']}, pointshard "
+        f"{pointshard}")
     kernels = []
     for name, r in records.items():
         src, replaces = KERNELS[name]

@@ -74,7 +74,12 @@ class BatchNorm(nn.Module):
     batch's over every axis but the last (padded points included): the
     mean and the biased variance E[x^2] - E[x]^2 clamped at 0, and updates
     the running statistics to 0.9 old + 0.1 batch. (PyTorch's batch_norm
-    would update running_var with the unbiased variance.)"""
+    would update running_var with the unbiased variance.) With ``group``
+    set (a ``torch.distributed`` process group, as
+    ``parallel/mesh.py::make_sharded_train_step`` sets it) the batch is
+    the one sharded over the group: the sums of x and x^2 and the counts
+    are all-reduced, with gradients flowing through the reduction, as the
+    JAX step's GSPMD computes the statistics of the global batch."""
 
     momentum = 0.9
 
@@ -85,14 +90,35 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.group = None
+
+    def _global_moments(self, x32: Tensor, axes: tuple) -> tuple:
+        """E[x] and E[x^2] over the batch sharded across ``group``."""
+        import warnings
+
+        from torch.distributed.nn.functional import all_reduce
+
+        count = x32.new_full((1,), float(x32.numel() // x32.shape[-1]))
+        with warnings.catch_warnings():
+            # newer PyTorch marks the module deprecated; its all_reduce
+            # carries the gradient the step needs
+            warnings.simplefilter("ignore", FutureWarning)
+            sums = all_reduce(torch.cat([torch.sum(x32, dim=axes),
+                                         torch.sum(x32 * x32, dim=axes),
+                                         count]), group=self.group)
+        c = x32.shape[-1]
+        return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
     def forward(self, x: Tensor) -> Tensor:
         x32 = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = torch.mean(x32, dim=axes)
-            var = torch.clamp(torch.mean(x32 * x32, dim=axes) - mean * mean,
-                              min=0.0)
+            if self.group is None:
+                mean = torch.mean(x32, dim=axes)
+                mean2 = torch.mean(x32 * x32, dim=axes)
+            else:
+                mean, mean2 = self._global_moments(x32, axes)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

@@ -19,8 +19,12 @@ Usage (on the card unless ``--device cpu``):
 
 ``--init-from`` warm-starts from an npz (a file, or a directory holding
 ``best.npz``), e.g. the committed ``ssf_slam_tpu_torch/weights/
-ssf_r3ft2.npz``, with a fresh optimizer. The Town02 mix of the JAX script
-(``--town02-routes``, ``--best-on t2|mean``) is not ported.
+ssf_r3ft2.npz``, with a fresh optimizer. ``--town02-routes N`` mixes N
+routes over the Town02 map (``data/town02.py``, its ``MAP_BIN``; tracked
+movers) into the corpus and evaluates a held-out route each epoch
+(``t2_*`` metrics); ``--best-on t2|mean`` picks the best checkpoint on
+that route, or on the mean EPE of both eval sets gated on the worse
+moving-IoU.
 """
 
 from __future__ import annotations
@@ -86,6 +90,13 @@ def parse_args(argv=None):
                    help="hybrid FG/BG sampling target per training frame")
     p.add_argument("--hard", action="store_true",
                    help="slow/crossing-mover corpus")
+    p.add_argument("--town02-routes", type=int, default=0,
+                   help="mix N routes over the Town02 map (with tracked "
+                        "movers) into the corpus; also evaluates a "
+                        "held-out Town02 route each epoch (t2_* metrics)")
+    p.add_argument("--town02-frames", type=int, default=24,
+                   help="frame pairs per Town02 route")
+    p.add_argument("--town02-vehicles", type=int, default=4)
     p.add_argument("--init-from", default=None,
                    help="warm-start parameters and batch statistics from an "
                         "npz, or DIR/best.npz (fresh optimizer)")
@@ -94,6 +105,13 @@ def parse_args(argv=None):
                         "EPE among epochs with moving-IoU >= <iou>)")
     p.add_argument("--seg-weight", type=float, default=1.0,
                    help="scale on the joint-seg BCE term")
+    p.add_argument("--best-on", default="eval",
+                   choices=("eval", "t2", "mean"),
+                   help="which held-out metrics pick the best checkpoint: "
+                        "the synthetic eval world ('eval'), the held-out "
+                        "Town02 route ('t2', needs --town02-routes), or "
+                        "their mean EPE gated on the worse of the two "
+                        "moving-IoUs ('mean')")
     p.add_argument("--freeze-bn", action="store_true",
                    help="run BatchNorm on its frozen running statistics")
     p.add_argument("--neighbor-backend", default="banded",
@@ -105,6 +123,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     p, args = parse_args(argv)
+    if args.best_on != "eval" and not args.town02_routes:
+        p.error(f"--best-on {args.best_on} requires --town02-routes > 0")
     try:
         gate_iou = parse_best_criterion(args.best_criterion)
     except ValueError as exc:
@@ -133,7 +153,24 @@ def main(argv=None) -> int:
     print("generating corpus...", flush=True)
     train_frames, eval_frames = build_corpus(
         args.n_worlds, args.frames_per_world,
-        fg_oversample=args.fg_oversample, hard=args.hard)
+        fg_oversample=args.fg_oversample, hard=args.hard,
+        n_points=N_POINTS)
+    t2_eval_frames = []
+    if args.town02_routes:
+        from ssf_slam_tpu_torch.data.town02 import training_frames
+
+        t2_train = training_frames(
+            args.town02_routes, args.town02_frames, n_points=N_POINTS,
+            n_vehicles=args.town02_vehicles, seed_base=0,
+            fg_oversample=args.fg_oversample)
+        # the held-out route: a seed_base whose route and vehicle seeds no
+        # training route shares
+        t2_eval_frames = training_frames(
+            1, 16, n_points=N_POINTS, n_vehicles=args.town02_vehicles,
+            seed_base=7777)
+        train_frames.extend(t2_train)
+        print(f"town02 mix: +{len(t2_train)} train pairs, "
+              f"{len(t2_eval_frames)} held-out pairs", flush=True)
     print(f"corpus: {len(train_frames)} train pairs, {len(eval_frames)} eval "
           f"pairs ({time.time() - t_start:.0f}s)", flush=True)
     lw = compute_label_weights(train_frames, max_items=128)
@@ -170,6 +207,8 @@ def main(argv=None) -> int:
     train_gen = batcher(train_frames, args.batch_size,
                         [tcfg.seed + start_epoch])
     eval_gen = batcher(eval_frames, args.batch_size, [999])
+    t2_gen = (batcher(t2_eval_frames, args.batch_size, [998])
+              if t2_eval_frames else None)
     tracker = BestTracker(gate_iou, best_epe)
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
@@ -182,14 +221,31 @@ def main(argv=None) -> int:
         ms = [{k: float(v) for k, v in eval_fn(state, to_device(b, dev))
                .items()} for b in eval_gen()]
         agg = {k: float(np.mean([m[k] for m in ms])) for k in ms[0]}
+        if t2_gen is not None:
+            t2ms = [{k: float(v) for k, v in eval_fn(state, to_device(b, dev))
+                     .items()} for b in t2_gen()]
+            agg.update({f"t2_{k}": float(np.mean([m[k] for m in t2ms]))
+                        for k in t2ms[0]})
         dt = time.time() - t0
+        t2_note = (f" t2EPE {agg['t2_epe3d']:.4f} "
+                   f"t2IoUm {agg.get('t2_iou_moving', float('nan')):.4f}"
+                   if t2_gen is not None else "")
         logger.cprint(
             f"epoch {epoch}: loss {epoch_loss:.4f} EPE {agg['epe3d']:.4f} "
             f"mIoU {agg.get('miou', float('nan')):.4f} "
-            f"acc3dr {agg['acc3d_relax']:.4f} ({dt:.0f}s, "
+            f"acc3dr {agg['acc3d_relax']:.4f}{t2_note} ({dt:.0f}s, "
             f"{len(losses) / dt:.2f} steps/s with eval)")
         logger.metrics(state.step, epoch=epoch, epoch_loss=epoch_loss, **agg)
-        if tracker.update(agg, epoch):
+        if args.best_on == "t2":
+            sel = {"epe3d": agg["t2_epe3d"],
+                   "iou_moving": agg.get("t2_iou_moving", 0.0)}
+        elif args.best_on == "mean":
+            sel = {"epe3d": (agg["epe3d"] + agg["t2_epe3d"]) / 2,
+                   "iou_moving": min(agg.get("iou_moving", 0.0),
+                                     agg.get("t2_iou_moving", 0.0))}
+        else:
+            sel = agg
+        if tracker.update(sel, epoch):
             save_checkpoint(os.path.abspath(args.out), state)
         save_resume(args.out, state, epoch, tracker.best_epe)
         if args.max_seconds and time.time() - t_start > args.max_seconds:

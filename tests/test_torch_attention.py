@@ -274,9 +274,15 @@ def test_attention_three_planes_hold_tolerance(k, c):
              for _ in range(2))
     assert attention_body(torch.bfloat16, k, c) == "mma"
     qa, ka, w, planes = _three_planes(q, kf)
-    # W as attention_plain builds it
-    q32, k32 = q.float(), kf.float()
-    s = q32 @ k32.transpose(-1, -2)
+    # W as attention_plain builds it, from the same zero-padded product
+    # sliced back to [K, K]: the claim is that padding and masking leave W
+    # as it is, and a host's BLAS may block a [K, C] product other than a
+    # padded one (K = 9 rounds apart by 1.9e-6 on some CPUs)
+    kp, cp = (16 if k <= 16 else 32), next(x for x in (32, 64, 128)
+                                           if c <= x)
+    pad = [0, cp - c, 0, kp - k]
+    q32, k32 = (torch.nn.functional.pad(x.float(), pad) for x in (q, kf))
+    s = (q32 @ k32.transpose(-1, -2))[..., :k, :k]
     e1 = torch.exp(s - torch.amax(s, dim=-2, keepdim=True))
     e2 = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
     w_plain = (e1 / torch.sum(e1, dim=-2, keepdim=True)) \

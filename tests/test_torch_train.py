@@ -322,8 +322,10 @@ def _small_model():
 @pytest.fixture(scope="module")
 def small_step(small_batch):
     """The port's loss, flat Flax gradients and new batch statistics of one
-    f32 train step of the small TFlow from the committed weights, and the
-    committed JAX step."""
+    f32 train step of the small TFlow from the committed weights, the
+    gradient again with the activations on the knife edge taken on their
+    other side (``torch_ref.edge_flipped_gradient``) and their count, and
+    the committed JAX step."""
     from ssf_slam_tpu_torch.config import LossConfig
     from ssf_slam_tpu_torch.ops import neighbors
     from ssf_slam_tpu_torch.train.trainer import forward_loss, to_device
@@ -340,13 +342,17 @@ def small_step(small_batch):
     got_grads = to_flax(model, dict(zip(params, grads)))
     stats = {k: v for k, v in to_flax(model).items()
              if k.startswith("batch_stats/")}
+    flipped, n_edge = torch_ref.edge_flipped_gradient(
+        _small_model().train(), lambda m: forward_loss(
+            m, to_device(batch, "cpu"), LossConfig(seg_class_weights=lw))[0])
+    edge = to_flax(model, flipped)
     with np.load(SMALL_REF) as z:
         want = {k: z[k] for k in z.files}
-    return (float(loss), got_grads, stats, n_sums), want
+    return (float(loss), got_grads, stats, n_sums, edge, n_edge), want
 
 
 def test_small_train_step_loss_matches_jax(small_step):
-    (loss, _, _, n_sums), want = small_step
+    (loss, _, _, n_sums, _, _), want = small_step
     assert loss == pytest.approx(float(want["loss"]), rel=1e-5)
     # banded at level 0 (1024 x 1024): the cost volume's two groupings and
     # its regroup sum segments in the backward; the warping's IDW gets no
@@ -355,25 +361,39 @@ def test_small_train_step_loss_matches_jax(small_step):
 
 
 def test_small_train_step_gradients_match_jax(small_step):
-    (_, grads, _, _), want = small_step
+    """Every leaf within 1e-4 of its norm (plus the floor below) of JAX's,
+    beyond what the activations on the knife edge can move it. Those are
+    inputs of a ReLU within rounding of zero, whose derivative is then the
+    host's (ROADMAP §3, host knife edges): at level 2 a weightnet
+    BatchNorm output reads 2.4e-8 on one host and -1.9e-7 from JAX's
+    inputs to the same layer, which moves flow2_r's and deconv3_2's leaves
+    by up to 4.15 times the bound. The allowance of a leaf is the sketch
+    of the gradient's change when every edge input takes its other side:
+    zero for leaves the edge does not reach."""
+    (_, grads, _, _, edge, n_edge), want = small_step
     norms = {k[len("grad_norm/"):]: float(v) for k, v in want.items()
              if k.startswith("grad_norm/")}
     assert grads.keys() == norms.keys()
+    # a few dozen of the step's ~3e7 activation inputs
+    assert n_edge < 1000, n_edge
     # the weightnets' output biases shift every logit of a per-segment
     # softmax alike: their gradient is zero but for rounding (norms of
     # 1e-8 to 1e-7), so every leaf also gets a floor of 1e-6 of the
     # largest leaf norm
     floor = 1e-6 * max(norms.values())
     for k, w in norms.items():
-        assert abs(np.linalg.norm(grads[k]) - w) <= 1e-4 * w + floor, k
+        assert abs(np.linalg.norm(grads[k]) - w) <= 1e-4 * w + floor \
+            + np.linalg.norm(edge[k] - grads[k]), k
         # the sketch of the difference measures its norm (to ~18 %)
         err = np.linalg.norm(torch_ref.count_sketch(grads[k], k)
                              - want[f"grad_sketch/{k}"])
-        assert err <= 1e-4 * w + floor, (k, err, w)
+        slack = np.linalg.norm(torch_ref.count_sketch(edge[k] - grads[k],
+                                                      k))
+        assert err <= 1e-4 * w + floor + slack, (k, err, w, slack)
 
 
 def test_small_train_step_batch_stats_match_jax(small_step):
-    (_, _, stats, _), want = small_step
+    (_, _, stats, _, _, _), want = small_step
     assert stats.keys() == {k for k in want if k.startswith("batch_stats/")}
     for k, v in stats.items():
         np.testing.assert_allclose(v, want[k], rtol=1e-5, atol=1e-6,

@@ -175,3 +175,134 @@ def count_sketch(x: np.ndarray, key: str, d: int = 64) -> np.ndarray:
     bucket = rng.integers(0, d, flat.size)
     sign = rng.integers(0, 2, flat.size) * 2.0 - 1.0
     return np.bincount(bucket, weights=sign * flat, minlength=d)
+
+
+
+# -- activations on the knife edge ------------------------------------------
+#
+# A ReLU (or leaky ReLU) input within rounding of zero takes its side of zero
+# from the last bits of the sums before it, which differ between hosts (the
+# BLAS's blocking of a matmul): its derivative (1 or 0; 1 or 0.1) is then the
+# host's. ``edge_flipped_gradient`` finds such inputs in the port's PointMLPs
+# and cost-volume weightnets and recomputes the gradient with every one of
+# them taken on the other side of zero, so a test can tell what those
+# elements alone move.
+
+EDGE_ROUND = 2.0 ** -20  # |x| within this share of its terms' magnitude
+EDGE_FLOOR = 1e-6  # and terms of at least this magnitude: a dead channel's
+# (weights of 1e-33) side is its bias's, the same on every host
+
+
+def _edge_act():
+    import torch
+
+    class Act(torch.autograd.Function):
+        """max(x, 0) + slope * min(x, 0), its derivative taken on the other
+        side of zero where ``flip`` is set."""
+
+        @staticmethod
+        def forward(ctx, x, flip, slope):
+            ctx.save_for_backward(x, flip)
+            ctx.slope = slope
+            return torch.where(x > 0, x, x * slope)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, flip = ctx.saved_tensors
+            return torch.where((x > 0) ^ flip, g, g * ctx.slope), None, None
+
+    return Act
+
+
+class _EdgeForward:
+    """The forward of PointMLP and of the weightnet, as the port computes
+    them, with every activation through ``Act``; ``n_edge`` counts the
+    inputs on the edge: |x| <= EDGE_ROUND * the magnitude of the terms that
+    x sums (|inputs| @ |W| + |b| for a Dense, then (that + |mean|) *
+    |rsqrt(var + eps) * scale| + |bias| through a train-mode BatchNorm)."""
+
+    def __init__(self):
+        self.act_fn = _edge_act()
+        self.n_edge = 0
+
+    def act(self, x, mag, leaky):
+        import torch
+
+        with torch.no_grad():
+            edge = (x.abs() <= EDGE_ROUND * mag) & (mag >= EDGE_FLOOR)
+        self.n_edge += int(edge.sum())
+        return self.act_fn.apply(x, edge, 0.1 if leaky else 0.0)
+
+    @staticmethod
+    def dense(d, x, mag=None):
+        import torch
+
+        with torch.no_grad():
+            m = (x.detach().abs().float() if mag is None else mag) \
+                @ d.weight.detach().abs().T
+            if d.bias is not None:
+                m = m + d.bias.detach().abs()
+        return d(x), m
+
+    @staticmethod
+    def batchnorm(bn, x, mag):
+        import torch
+
+        with torch.no_grad():
+            x32 = x.detach().float()
+            axes = tuple(range(x.dim() - 1))
+            mean = x32.mean(axes)
+            var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
+            mul = (torch.rsqrt(var + bn.eps) * bn.weight).abs()
+            mag = (mag + mean.abs()) * mul + bn.bias.detach().abs()
+        return bn(x), mag
+
+    def point_mlp(self, mlp, x):
+        for i in range(len(mlp.features)):
+            if i == 0 and mlp.n_parts:
+                rank = max(p.dim() for p in x)
+                y = mag = None
+                for j, p in enumerate(x):
+                    d, dm = self.dense(getattr(mlp, f"Dense_0_part{j}"), p)
+                    while d.dim() < rank:
+                        d, dm = d[..., None, :], dm[..., None, :]
+                    y, mag = (d, dm) if y is None else (y + d, mag + dm)
+                x = y
+            else:
+                x, mag = self.dense(getattr(mlp, f"Dense_{i}"), x)
+            if mlp.use_bn:
+                x, mag = self.batchnorm(getattr(mlp, f"BatchNorm_{i}"), x, mag)
+            x = self.act(x, mag, mlp.leaky)
+        return x
+
+    def weightnet(self, cv, x):
+        for d, bn in ((cv.Dense_0, cv.BatchNorm_0),
+                      (cv.Dense_1, cv.BatchNorm_1)):
+            x, mag = self.dense(d, x)
+            x, mag = self.batchnorm(bn, x, mag)
+            x = self.act(x, mag, False)
+        return cv.Dense_2(x)
+
+
+def edge_flipped_gradient(model, loss_of) -> tuple:
+    """The gradient of ``loss_of(model)`` (a train-mode port model) with
+    every activation input on the knife edge taken on the other side of
+    zero, and the number of such inputs: ({parameter name: gradient},
+    n_edge). The forward values are the port's own."""
+    import torch
+
+    from ssf_slam_tpu_torch.models import costvolume, layers
+
+    fwd = _EdgeForward()
+    saved = (layers.PointMLP.forward,
+             costvolume.AttentiveCostVolume.weightnet)
+    layers.PointMLP.forward = lambda self, x: fwd.point_mlp(self, x)
+    costvolume.AttentiveCostVolume.weightnet = \
+        lambda self, x: fwd.weightnet(self, x)
+    try:
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss_of(model), list(params.values()))
+    finally:
+        (layers.PointMLP.forward,
+         costvolume.AttentiveCostVolume.weightnet) = saved
+    return dict(zip(params, grads)), fwd.n_edge
