@@ -20,6 +20,18 @@ holding ``best.npz``). One flag is added: ``--device`` (default ``cuda``);
 nothing falls back to the CPU when CUDA is absent, it raises. Variant names
 mirror the launch files: onlypc, seg, noseg, sf, ssf (the joint head), ssfc
 (the separate SegNet classifier, ``--seg-ckpt``).
+
+``run --profile DIR`` (and ``run --stream --profile DIR``) runs under
+``torch.profiler`` and writes ``DIR/trace.json``, a Chrome/Perfetto trace
+(chrome://tracing, ui.perfetto.dev) of the host and, on CUDA, the card: the
+port's ranges ``ssf.step`` (a scan), ``ssf.tower``, ``ssf.head``,
+``ssf.slam_step`` with its stages ``ssf.features``, ``ssf.ego_motion``,
+``ssf.seg_gate``, ``ssf.mapping``, ``ssf.keyframe`` and ``ssf.loop``, and in
+``--stream`` mode ``ssf.readback`` and ``ssf.retire``, over the kernels and
+copies each launched. The profiler slows the host, so time a run without
+it. ``run --stream`` prints the rate, the completion latency, the dispatch
+time (the step's call and its readback enqueued) and the held time (a
+finished pose waiting in the FIFO for the next scan, at depth > 1).
 """
 
 from __future__ import annotations
@@ -241,10 +253,13 @@ def _report_map(variant_name: str, state, outs: dict) -> None:
 def cmd_run(args) -> int:
     from ssf_slam_tpu_torch.engine.evaluation import ate_rmse, rpe, write_tum
 
+    from ssf_slam_tpu_torch.utils.logging import profile_trace
+
     if args.stream:
         return _cmd_run_stream(args)
     frames = _load_frames(args)
-    times, pos, quat, state = _run_variant(frames, args.variant, args)
+    with profile_trace(args.profile):
+        times, pos, quat, state = _run_variant(frames, args.variant, args)
     write_tum(args.out, times, pos, quat)
     print(f"wrote {len(times)} poses to {args.out}")
     if args.map_ply:
@@ -268,6 +283,7 @@ def _cmd_run_stream(args) -> int:
     10 Hz operation, PointCloudOdometry.py:42)."""
     from ssf_slam_tpu_torch.config import Variant
     from ssf_slam_tpu_torch.engine.streaming import StreamingRunner
+    from ssf_slam_tpu_torch.utils.logging import profile_trace
 
     if args.variant not in ("sf", "ssf", "ssfc"):
         print("--stream drives the fused network-in-the-loop variants "
@@ -289,7 +305,8 @@ def _cmd_run_stream(args) -> int:
         model, cfg, use_gmm=args.variant == "sf", seg_apply=seg_apply,
         tum_path=args.out, pipeline_depth=args.pipeline_depth,
         device=args.device)
-    stats = runner.run(frames)
+    with profile_trace(args.profile):
+        stats = runner.run(frames)
     print(f"streamed {stats['n_scans']} scans -> {args.out}")
     if args.map_ply:
         from ssf_slam_tpu_torch.utils.viz import map_to_ply
@@ -299,7 +316,8 @@ def _cmd_run_stream(args) -> int:
     print(f"rate {stats['hz']:.1f} Hz  completion latency mean "
           f"{stats['latency_ms_mean']:.1f} ms  p95 "
           f"{stats['latency_ms_p95']:.1f} ms  dispatch mean "
-          f"{stats['dispatch_ms_mean']:.1f} ms  depth "
+          f"{stats['dispatch_ms_mean']:.1f} ms  held mean "
+          f"{stats['held_ms_mean']:.1f} ms  depth "
           f"{stats['pipeline_depth']}  loops {stats['n_loops']}")
     target = 10.0
     print(f"10 Hz live target: {'MET' if stats['hz'] >= target else 'MISSED'}")
@@ -461,6 +479,9 @@ def main(argv=None) -> int:
                     help="scans in flight in --stream mode before the "
                          "oldest pose is read back (1 = strictly "
                          "synchronous)")
+    sp.add_argument("--profile", default=None, metavar="DIR",
+                    help="run under torch.profiler and write DIR/trace.json "
+                         "(Chrome/Perfetto) with the port's ssf.* ranges")
     sp.set_defaults(fn=cmd_run)
 
     sp = sub.add_parser("train", help="train the scene-flow net")

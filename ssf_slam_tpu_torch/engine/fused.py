@@ -18,6 +18,10 @@ The step takes a batch of B sequences (B = 1 for one): the network runs
 once a scan over the batch, the SLAM step for each member with its own
 state (``parallel/mesh.py::run_sequences_fused_batched``, the port's
 counterpart of scripts/batch_economics.py's ``vmap`` of the step).
+
+Under a profiler (``utils/logging.py::span``) a scan's step is the range
+``ssf.step`` (its index as the argument ``scan``), opened by the caller, with
+``ssf.tower``, ``ssf.head`` and one ``ssf.slam_step`` a member inside it.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ssf_slam_tpu_torch.engine.pipeline import (
     stack_outputs,
 )
 from ssf_slam_tpu_torch.ops.precision import set_geom_precision
+from ssf_slam_tpu_torch.utils.logging import span
 
 Tensor = torch.Tensor
 
@@ -105,23 +110,27 @@ def make_fused_step(model, cfg: PipelineConfig, box, use_gmm: bool = False,
 
     def step(carry, scan: dict):
         states, tower_prev = carry
-        t_curr = model.tower(scan["points"], box)
-        flows, _ = model.head(tower_prev, t_curr, box)
+        with span("tower"):
+            t_curr = model.tower(scan["points"], box)
+        with span("head"):
+            flows, _ = model.head(tower_prev, t_curr, box)
         out = flows[0]
         new_states, outputs = [], []
         for b, state in enumerate(states):
             member = {k: v[b] for k, v in scan.items()}
-            state, o = slam_step(
-                state, slam_scan_of(member, out[b], use_gmm, seg_apply), cfg)
+            slam_scan = slam_scan_of(member, out[b], use_gmm, seg_apply)
+            with span("slam_step"):
+                state, o = slam_step(state, slam_scan, cfg)
             o["flow"] = out[b]
             new_states.append(state)
             outputs.append(o)
         return (new_states, t_curr), outputs
 
     def make_carry(first_prev):
-        return ([init_slam_state(cfg, first_prev.device)
-                 for _ in range(len(first_prev))],
-                model.tower(first_prev, box))
+        states = [init_slam_state(cfg, first_prev.device)
+                  for _ in range(len(first_prev))]
+        with span("tower"):
+            return states, model.tower(first_prev, box)
 
     return step, make_carry
 
@@ -151,7 +160,9 @@ def run_fused_members(model, frames_batch: list, cfg: PipelineConfig,
     with torch.inference_mode():
         carry = make_carry(scans["prev"][:, 0])
         for k in range(scans["points"].shape[1]):
-            carry, o = step(carry, {key: v[:, k] for key, v in scans.items()})
+            with span("step", scan=k):
+                carry, o = step(carry, {key: v[:, k] for key, v in
+                                        scans.items()})
             outs.append(o)
     return carry[0], [stack_outputs([o[b] for o in outs])
                       for b in range(len(frames_batch))]

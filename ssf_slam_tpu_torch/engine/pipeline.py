@@ -16,6 +16,10 @@ against the current scan's ring-diverse planes (``odometry/flow_refine.py``),
 and those planes become the keyframe's stored normals. The flow variants
 seg-gate the stored keyframe cloud. The JAX package's ``lax.cond`` on the
 first-frame gate is a host bool here.
+
+Under a profiler (``utils/logging.py::span``) the step's stages are the
+ranges ``ssf.features``, ``ssf.ego_motion``, ``ssf.seg_gate`` and
+``ssf.mapping``.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from ssf_slam_tpu_torch.ops.se3 import (
     quat_normalize,
     quat_rotate,
 )
+from ssf_slam_tpu_torch.utils.logging import span
 
 Tensor = torch.Tensor
 
@@ -161,19 +166,22 @@ def slam_step(state: SlamState, scan: dict,
     ``pose_q/pose_t``, the odometry ``odom_q/odom_t``, the frame motion
     ``rel_q/rel_t``, ``is_keyframe`` (host bool), ``n_features`` and
     ``n_dyn_over`` (0-d tensors)."""
-    feat = extract_plane_features(scan["points"], scan["mask"], cfg.lidar,
-                                  cfg.features)
-    dev = feat.xyz.device
     flow_variant = cfg.variant != Variant.ONLY_PC
-    # the current scan's planes: ONLY_PC's odometry and geom_refine's
-    # target; otherwise the keyframe branch fits the strided rows' normals
-    curr_planes = None
-    if not flow_variant or cfg.egomotion.geom_refine:
-        curr_planes = fit_ring_diverse_planes(feat, cfg.odometry)
+    with span("features"):
+        feat = extract_plane_features(scan["points"], scan["mask"],
+                                      cfg.lidar, cfg.features)
+        # the current scan's planes: ONLY_PC's odometry and geom_refine's
+        # target; otherwise the keyframe branch fits the strided rows'
+        # normals
+        curr_planes = None
+        if not flow_variant or cfg.egomotion.geom_refine:
+            curr_planes = fit_ring_diverse_planes(feat, cfg.odometry)
+    dev = feat.xyz.device
     static = None
     if state.have_last:
-        rel_q, rel_t, static = _frame_motion(state, scan, feat, curr_planes,
-                                             cfg)
+        with span("ego_motion"):
+            rel_q, rel_t, static = _frame_motion(state, scan, feat,
+                                                 curr_planes, cfg)
     else:  # no pair yet: everything counts as static for the map gate
         rel_q, rel_t = quat_identity(dev), torch.zeros(3, device=dev)
         if flow_variant:
@@ -185,22 +193,25 @@ def slam_step(state: SlamState, scan: dict,
     kf_mask = feat.mask
     n_dyn_over = torch.zeros((), dtype=torch.int64, device=dev)
     if flow_variant and cfg.mapping.seg_gate_keyframes:
-        warped = scan["flow_points"] + scan["flow"]
-        static_trim = trim_static_mask(scan["flow_points"], scan["flow"],
-                                       static, rel_q, rel_t,
-                                       cfg.egomotion.refine_trim_resid)
-        dyn = scan["flow_mask"] & ~static_trim
-        kf_mask = feat.mask & ~near_dynamic(feat.xyz, warped, dyn,
-                                            cfg.mapping.seg_gate_radius)
-        n_dyn_over = torch.clamp(dyn.long().sum() - DYN_BUDGET, min=0)
+        with span("seg_gate"):
+            warped = scan["flow_points"] + scan["flow"]
+            static_trim = trim_static_mask(scan["flow_points"], scan["flow"],
+                                           static, rel_q, rel_t,
+                                           cfg.egomotion.refine_trim_resid)
+            dyn = scan["flow_mask"] & ~static_trim
+            kf_mask = feat.mask & ~near_dynamic(feat.xyz, warped, dyn,
+                                                cfg.mapping.seg_gate_radius)
+            n_dyn_over = torch.clamp(dyn.long().sum() - DYN_BUDGET, min=0)
 
     # integrate, renormalised against norm drift
     odom_q, odom_t = pose_compose((state.odom_q, state.odom_t),
                                   (rel_q, rel_t))
     odom_q = quat_normalize(odom_q)
-    map_state, map_out = mapping_step(state.map_state, odom_q, odom_t,
-                                      feat.xyz, kf_mask, scan["time"],
-                                      cfg.mapping, cloud_planes=curr_planes)
+    with span("mapping"):
+        map_state, map_out = mapping_step(state.map_state, odom_q, odom_t,
+                                          feat.xyz, kf_mask, scan["time"],
+                                          cfg.mapping,
+                                          cloud_planes=curr_planes)
 
     last_feat, last_planes = feat, state.last_planes
     if not flow_variant:
@@ -213,7 +224,8 @@ def slam_step(state: SlamState, scan: dict,
             xyz=torch.cat([old_xyz[f:], feat.xyz]),
             ring=torch.cat([old.ring[f:], feat.ring]),
             mask=torch.cat([old.mask[f:], feat.mask]))
-        last_planes = fit_ring_diverse_planes(last_feat, cfg.odometry)
+        with span("features"):
+            last_planes = fit_ring_diverse_planes(last_feat, cfg.odometry)
     new_state = SlamState(last_feat=last_feat, last_planes=last_planes,
                           have_last=True, odom_q=odom_q, odom_t=odom_t,
                           vel_q=rel_q, vel_t=rel_t, map_state=map_state)

@@ -17,8 +17,19 @@ rate. ``StreamingRunner`` is the per-arriving-scan host loop:
 - the TUM trajectory is written incrementally, in arrival order, in the TUM
   order ``t x y z qx qy qz qw`` of ``engine/evaluation.py::write_tum``;
 - ``latency_ms_*`` is completion latency (arrival to the pose on the
-  host), ``dispatch_ms_*`` the host time to run one step's call, ``hz``
-  the sustained rate.
+  host), ``dispatch_ms_*`` the host time to run one step's call,
+  ``held_ms_*`` how long a finished pose waited in the FIFO before it was
+  retired, ``hz`` the sustained rate. They come from ``timings``, one
+  ``ScanTimes`` a scan (host ``time.perf_counter`` seconds): pickup, the
+  step dispatched with its readback enqueued, the pose ready on the host,
+  and the pose retired. ``ready`` on the card is pickup plus the device
+  time from an event recorded at pickup to the readback's event (read at
+  retirement, after the wait the runner does anyway, so it costs no sync);
+  where the device is still busy with earlier work at pickup it reaches
+  that event late, and ``ready`` reads early by that much. On the CPU the
+  copy is done when the step returns: ``ready = dispatched``. Under a
+  profiler (``utils/logging.py::span``) the step is ``ssf.step``, the
+  readback ``ssf.readback`` and the retirement ``ssf.retire``.
 
 The Morton box cannot cover a sequence that has not arrived yet: it is
 anchored at the first scan, padded by ``box_margin`` metres. Points that
@@ -36,7 +47,7 @@ import collections
 import itertools
 import sys
 import time
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,6 +56,22 @@ from ssf_slam_tpu_torch.config import PipelineConfig
 from ssf_slam_tpu_torch.device import resolve_device
 from ssf_slam_tpu_torch.engine.fused import make_fused_step, sequence_box
 from ssf_slam_tpu_torch.ops.precision import set_geom_precision
+from ssf_slam_tpu_torch.utils.logging import span
+
+
+class ScanTimes(NamedTuple):
+    """One streamed scan's stamps, ``time.perf_counter`` seconds."""
+
+    scan: int  # index in its run
+    pickup: float  # the runner took the scan
+    dispatched: float  # the step returned, the readback enqueued
+    ready: float  # the pose on the host
+    retired: float  # the pose retired (its TUM line written after)
+
+    @property
+    def held(self) -> float:
+        """How long the finished pose waited in the FIFO."""
+        return self.retired - self.ready
 
 
 def box_overshoot(points: np.ndarray, mask: np.ndarray, box) -> float:
@@ -82,6 +109,7 @@ class StreamingRunner:
         self.device = resolve_device(device)
         self.box = box  # anchored at the first scan of run() when None
         self.latencies_ms: list[float] = []
+        self.timings: list[ScanTimes] = []
         self.final_state = None  # SlamState after run() (map export etc.)
 
     def _anchor_box(self, first: dict, n: int):
@@ -102,15 +130,17 @@ class StreamingRunner:
 
     def _readback(self, outs: dict):
         """Start the copy of pose_t || pose_q to the host: (host tensor,
-        CUDA event or None)."""
-        pose = torch.cat([outs["pose_t"], outs["pose_q"]])
-        if not pose.is_cuda:
-            return pose.clone(), None
-        host = torch.empty(pose.shape, dtype=pose.dtype, pin_memory=True)
-        host.copy_(pose, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
+        timing-enabled CUDA event or None)."""
+        with span("readback"):
+            pose = torch.cat([outs["pose_t"], outs["pose_q"]])
+            if not pose.is_cuda:
+                return pose.clone(), None
+            host = torch.empty(pose.shape, dtype=pose.dtype,
+                               pin_memory=True)
+            host.copy_(pose, non_blocking=True)
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return host, event
 
     def run(self, frames: Iterable[dict], warmup: bool = True,
             state=None, prev: Optional[dict] = None) -> dict:
@@ -142,20 +172,28 @@ class StreamingRunner:
                         time=t[None])
 
         pending: collections.deque = collections.deque()
-        dispatch_ms: list[float] = []
         n_scans = 0
         warned_box = False
+        on_card = self.device.type == "cuda"
 
         def retire(entry):
-            t_arr, t_scan, host, event = entry
-            if event is not None:
-                event.synchronize()
-            v = host.tolist()  # [x, y, z, qx, qy, qz, qw]
-            self.latencies_ms.append((time.perf_counter() - t_arr) * 1e3)
-            if fh is not None:
-                fh.write(f"{t_scan:.6f} " + " ".join(f"{x:.6f}" for x in v)
-                         + "\n")
-                fh.flush()
+            k, t_arr, t_disp, t_scan, host, start, event = entry
+            with span("retire"):
+                if event is not None:
+                    event.synchronize()
+                v = host.tolist()  # [x, y, z, qx, qy, qz, qw]
+                t_ret = time.perf_counter()
+                self.latencies_ms.append((t_ret - t_arr) * 1e3)
+                ready = t_disp
+                if start is not None:
+                    done = t_arr + start.elapsed_time(event) * 1e-3
+                    ready = min(max(t_disp, done), t_ret)
+                self.timings.append(ScanTimes(k, t_arr, t_disp, ready,
+                                              t_ret))
+                if fh is not None:
+                    fh.write(f"{t_scan:.6f} "
+                             + " ".join(f"{x:.6f}" for x in v) + "\n")
+                    fh.flush()
 
         with torch.inference_mode():
             if warmup:
@@ -168,6 +206,10 @@ class StreamingRunner:
             t_start = time.perf_counter()
             for f in itertools.chain([first], it):
                 t0 = time.perf_counter()
+                start = None
+                if on_card:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
                 if box is not None and not warned_box:
                     over = box_overshoot(f["pos1"][:n], f["mask1"][:n], box)
                     if over > 0.0:
@@ -178,11 +220,12 @@ class StreamingRunner:
                               "degrades beyond it — raise box_margin to the "
                               "route's expected travel", file=sys.stderr)
                 scan = scan_of(f)
-                carry, outs = step(carry, scan)
+                with span("step", scan=n_scans):
+                    carry, outs = step(carry, scan)
                 host, event = self._readback(outs[0])
-                dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+                pending.append((n_scans, t0, time.perf_counter(),
+                                float(f["time"]), host, start, event))
                 prev_pts, prev_mask = scan["points"][0], scan["mask"][0]
-                pending.append((t0, float(f["time"]), host, event))
                 if len(pending) >= self.pipeline_depth:
                     retire(pending.popleft())
                 n_scans += 1
@@ -194,7 +237,9 @@ class StreamingRunner:
         self.final_state = carry[0][0]
 
         lat = np.asarray(self.latencies_ms[-n_scans:])
-        disp = np.asarray(dispatch_ms)
+        times = self.timings[-n_scans:]
+        disp = np.asarray([(r.dispatched - r.pickup) * 1e3 for r in times])
+        held = np.asarray([r.held * 1e3 for r in times])
         return dict(
             n_scans=n_scans,
             hz=n_scans / wall,
@@ -205,6 +250,10 @@ class StreamingRunner:
             # the host time of one step's call: the cadence floor
             dispatch_ms_mean=float(disp.mean()),
             dispatch_ms_p95=float(np.percentile(disp, 95)),
+            # a finished pose's wait in the FIFO: at depth > 1, until the
+            # next scan has arrived and been dispatched
+            held_ms_mean=float(held.mean()),
+            held_ms_p95=float(np.percentile(held, 95)),
             pipeline_depth=self.pipeline_depth,
             n_loops=int(self.final_state.map_state.n_loops_total),
         )

@@ -21,6 +21,10 @@ Past ``max_keyframes`` the step keeps the JAX package's semantics: the
 cursor keeps counting, a keyframe write past the last row is dropped (the
 one-hot select matches no row) and a read past it takes the last row (XLA
 clamps gather indices), so the map stops growing instead of failing.
+
+Under a profiler (``utils/logging.py::span``) the keyframe branch is the
+range ``ssf.keyframe`` and, inside it, loop detection, ICP and the pose
+graph are ``ssf.loop``.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from ssf_slam_tpu_torch.ops.se3 import (
     so3_exp_quat,
     so3_log_quat,
 )
+from ssf_slam_tpu_torch.utils.logging import span
 
 Tensor = torch.Tensor
 
@@ -372,7 +377,8 @@ def _add_keyframe(state: MapState, q, t, cloud_xyz, cloud_mask, time,
     state = state._replace(n_kf=idx + 1)
     if (cfg.enable_loop_closure and state.n_kf >= cfg.loop_min_keyframes
             and idx > state.loop_record_index):
-        state = _try_close_loop(state, idx, cfg)
+        with span("loop"):
+            state = _try_close_loop(state, idx, cfg)
     row = _row(state, idx)
     return state._replace(cur_q=state.kf_q[row], cur_t=state.kf_t[row])
 
@@ -390,8 +396,9 @@ def mapping_step(state: MapState, odom_q: Tensor, odom_t: Tensor,
     q, t = pose_compose((state.adjust_q, state.adjust_t), (odom_q, odom_t))
     is_kf = _is_keyframe(state, q, t, cfg)
     if is_kf:
-        state = _add_keyframe(state, q, t, cloud_xyz, cloud_mask, time, cfg,
-                              cloud_planes)
+        with span("keyframe"):
+            state = _add_keyframe(state, q, t, cloud_xyz, cloud_mask, time,
+                                  cfg, cloud_planes)
     else:
         state = state._replace(cur_q=q, cur_t=t)
     return state, dict(pose_q=state.cur_q, pose_t=state.cur_t,

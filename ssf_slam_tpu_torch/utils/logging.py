@@ -1,9 +1,9 @@
 """Run logging (ssf_slam_tpu/utils/logging.py): line logging to
 ``run.log``, one JSON object per metrics record in ``metrics.jsonl``, an
 optional TensorBoard writer (``torch.utils.tensorboard``, attached when it
-imports, as in the JAX package), a config snapshot in ``config.json``, and
+imports, as in the JAX package), a config snapshot in ``config.json``,
 ``profile_trace``, a ``torch.profiler`` scope that writes a Chrome/Perfetto
-trace.
+trace, and ``span``, the port's named ranges on that trace.
 """
 
 from __future__ import annotations
@@ -14,6 +14,10 @@ import json
 import os
 import time
 from typing import Any, Optional
+
+import torch
+
+_OFF = contextlib.nullcontext()
 
 
 class RunLogger:
@@ -77,7 +81,6 @@ def profile_trace(out_dir: Optional[str]):
     if out_dir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
@@ -87,3 +90,24 @@ def profile_trace(out_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+
+
+def span(name: str, **args):
+    """The range ``ssf.<name>`` on the profiler's timeline while a
+    ``torch.profiler`` session is active (``profile_trace``, or any other),
+    with ``args`` (e.g. ``scan=k``, a scan's index) among its arguments
+    where the session records shapes; otherwise one shared null context, so
+    that a run nobody profiles pays a single check a span. Spans nest: the
+    innermost open one is the stage the host is in, and the device's
+    kernels launched inside it are its own.
+
+    The range is a function-scope record (``_RecordFunctionFast``), not a
+    user annotation (``record_function``): it sits on the host's timeline
+    and is linked to the kernels it launched, but puts no copy of itself on
+    the device's timeline, so a tool that counts the device's events or
+    their busy time counts the same with the port's spans as without."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    from torch._C._profiler import _RecordFunctionFast
+
+    return _RecordFunctionFast(f"ssf.{name}", [], args)

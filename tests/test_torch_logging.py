@@ -2,7 +2,9 @@
 the JAX package's RunLogger, on the CPU: the same run.log / metrics.jsonl /
 config.json, the TensorBoard writer where ``torch.utils.tensorboard``
 imports, and ``profile_trace`` writing a Chrome trace (nothing when given
-no directory); these two in a subprocess each."""
+no directory), also as ``cli run --profile`` and ``cli run --stream
+--profile`` call it, with the port's ``ssf.*`` ranges in the trace; these
+in a subprocess each."""
 
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import json
 import os
 import subprocess
 import sys
+
+import pytest
 
 
 def test_run_logger_files_match_jax(tmp_path):
@@ -77,3 +81,31 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("mm" in n for n in names), sorted(names)[:20]
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["run", "stream"])
+def test_cli_run_profile_writes_the_ssf_spans(tmp_path, stream):
+    _in_a_process(
+        "import os, sys, torch\n"
+        "from ssf_slam_tpu_torch.cli import main\n"
+        "from ssf_slam_tpu_torch.config import FlowNetConfig\n"
+        "from ssf_slam_tpu_torch.models.layers import init_flax\n"
+        "from ssf_slam_tpu_torch.models.tflow import TFlow\n"
+        "from ssf_slam_tpu_torch.weights import save_npz, to_flax\n"
+        "d = sys.argv[1]\n"
+        "model = TFlow(FlowNetConfig(npoint=2048, joint_seg=True))\n"
+        "init_flax(model, torch.Generator().manual_seed(1))\n"
+        "save_npz(os.path.join(d, 'joint.npz'), to_flax(model))\n"
+        "argv = ['run', '--variant', 'ssf', '--synthetic', '--frames', '2',\n"
+        "        '--n-points', '2048', '--net-dtype', 'float32',\n"
+        "        '--ckpt', os.path.join(d, 'joint.npz'), '--device', 'cpu',\n"
+        "        '--out', os.path.join(d, 't.tum'),\n"
+        "        '--profile', os.path.join(d, 'prof')]\n"
+        f"argv += {['--stream'] if stream else []!r}\n"
+        "assert main(argv) == 0\n", tmp_path)
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    want = {"ssf.step", "ssf.tower", "ssf.head", "ssf.slam_step"}
+    if stream:
+        want |= {"ssf.readback", "ssf.retire"}
+    assert want <= names, sorted(n for n in names if n.startswith("ssf."))
