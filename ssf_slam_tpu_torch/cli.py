@@ -30,8 +30,11 @@ port's ranges ``ssf.step`` (a scan), ``ssf.tower``, ``ssf.head``,
 ``--stream`` mode ``ssf.readback`` and ``ssf.retire``, over the kernels and
 copies each launched. The profiler slows the host, so time a run without
 it. ``run --stream`` prints the rate, the completion latency, the dispatch
-time (the step's call and its readback enqueued) and the held time (a
-finished pose waiting in the FIFO for the next scan, at depth > 1).
+time (the step's call and its readback enqueued), the held time (a
+finished pose waiting in the FIFO behind the dispatch of a scan that was
+already waiting, at depth > 1, where its copy was not yet done) and how
+many poses were retired early (at once: no scan was waiting, or the copy
+was done).
 """
 
 from __future__ import annotations
@@ -317,7 +320,8 @@ def _cmd_run_stream(args) -> int:
           f"{stats['latency_ms_mean']:.1f} ms  p95 "
           f"{stats['latency_ms_p95']:.1f} ms  dispatch mean "
           f"{stats['dispatch_ms_mean']:.1f} ms  held mean "
-          f"{stats['held_ms_mean']:.1f} ms  depth "
+          f"{stats['held_ms_mean']:.1f} ms  retired early "
+          f"{stats['retired_early']}  depth "
           f"{stats['pipeline_depth']}  loops {stats['n_loops']}")
     target = 10.0
     print(f"10 Hz live target: {'MET' if stats['hz'] >= target else 'MISSED'}")
@@ -476,9 +480,9 @@ def main(argv=None) -> int:
                     help="online mode: per-arriving-scan step + incremental "
                          "TUM + Hz/latency report (live 10 Hz parity)")
     sp.add_argument("--pipeline-depth", type=int, default=2,
-                    help="scans in flight in --stream mode before the "
-                         "oldest pose is read back (1 = strictly "
-                         "synchronous)")
+                    help="most scans in flight in --stream mode; a pose "
+                         "is held only while a scan waits and its copy is "
+                         "not done (1 = strictly synchronous)")
     sp.add_argument("--profile", default=None, metavar="DIR",
                     help="run under torch.profiler and write DIR/trace.json "
                          "(Chrome/Perfetto) with the port's ssf.* ranges")

@@ -7,26 +7,41 @@ rate. ``StreamingRunner`` is the per-arriving-scan host loop:
 
 - one call of the fused step (``engine/fused.py``) per arriving scan, with
   tower caching, so each arrival costs one cloud's pyramid and the head;
-- poses come back through a FIFO of ``pipeline_depth`` pending readbacks:
-  each scan's ``pose_t || pose_q`` is copied into pinned host memory with
-  ``non_blocking=True`` behind a CUDA event, and a scan is retired (its
-  event waited on, its TUM line written) once ``pipeline_depth`` scans are
-  in flight. Depth 1 is strictly synchronous. The port's step itself syncs
-  the host a few times a scan (the keyframe gate, loop detection, the
-  Kabsch SVD), which bounds what depth 2 can overlap;
+- the caller's frames are pulled on a thread of their own
+  (``_FrameSource``) into a one-slot queue, so that the runner sees
+  whether a scan is waiting. That thread only calls ``next`` on the
+  caller's iterator: the uploads, the step, the readbacks, the events and
+  every ``ssf.*`` span stay on the runner's thread. ``run`` stops and
+  joins it on its way out, normal or not (waiting at most ``JOIN_S`` for
+  a ``next`` in progress), and raises again an error of the source;
+- poses come back through a FIFO of at most ``pipeline_depth`` pending
+  readbacks: each scan's ``pose_t || pose_q`` is copied into pinned host
+  memory with ``non_blocking=True`` behind a CUDA event. After each
+  dispatch the oldest scan is retired (its event waited on, its TUM line
+  written) while ``pipeline_depth`` scans are in flight, no scan is
+  waiting, or its copy is already done; then the runner takes the next
+  scan. So a pose is held only while the device is still behind the host
+  and a scan waits: depth > 1 then overlaps the pose's readback with the
+  next dispatch. ``retired_early`` counts the poses retired before the
+  depth bound and outside the final drain. Depth 1 is strictly
+  synchronous. The port's step itself syncs the host a few times a scan
+  (the keyframe gate, loop detection, the Kabsch SVD), so at the port's
+  rates the copy is done when the step returns and no pose is held;
 - the TUM trajectory is written incrementally, in arrival order, in the TUM
   order ``t x y z qx qy qz qw`` of ``engine/evaluation.py::write_tum``;
 - ``latency_ms_*`` is completion latency (arrival to the pose on the
   host), ``dispatch_ms_*`` the host time to run one step's call,
   ``held_ms_*`` how long a finished pose waited in the FIFO before it was
-  retired, ``hz`` the sustained rate. They come from ``timings``, one
-  ``ScanTimes`` a scan (host ``time.perf_counter`` seconds): pickup, the
-  step dispatched with its readback enqueued, the pose ready on the host,
-  and the pose retired. ``ready`` on the card is pickup plus the device
-  time from an event recorded at pickup to the readback's event (read at
-  retirement, after the wait the runner does anyway, so it costs no sync);
-  where the device is still busy with earlier work at pickup it reaches
-  that event late, and ``ready`` reads early by that much. On the CPU the
+  retired (behind the next scan's dispatch only where that scan was
+  already waiting and the copy not yet done), ``hz`` the sustained rate.
+  They come from ``timings``, one ``ScanTimes`` a scan (host
+  ``time.perf_counter`` seconds): pickup, the step dispatched with its
+  readback enqueued, the pose ready on the host, and the pose retired.
+  ``ready`` on the card is pickup plus the device time from an event
+  recorded at pickup to the readback's event (read at retirement, after
+  the wait the runner does anyway, so it costs no sync); where the device
+  is still busy with earlier work at pickup it reaches that event late,
+  and ``ready`` reads early by that much. On the CPU the
   copy is done when the step returns: ``ready = dispatched``. Under a
   profiler (``utils/logging.py::span``) the step is ``ssf.step``, the
   readback ``ssf.readback`` and the retirement ``ssf.retire``.
@@ -44,8 +59,10 @@ run's ``box`` so that the towers are sorted as before.
 from __future__ import annotations
 
 import collections
-import itertools
+import contextlib
+import queue
 import sys
+import threading
 import time
 from typing import Iterable, Iterator, NamedTuple, Optional
 
@@ -72,6 +89,71 @@ class ScanTimes(NamedTuple):
     def held(self) -> float:
         """How long the finished pose waited in the FIFO."""
         return self.retired - self.ready
+
+
+_END = object()  # the caller's iterator is exhausted
+
+
+class _FrameSource:
+    """The caller's frames, pulled by a thread of their own into a
+    one-slot queue. The thread calls nothing but ``next`` on the iterator
+    (no torch call: the profiler's callbacks and the CUDA work stay on the
+    runner's thread). ``close`` stops it and joins it."""
+
+    JOIN_S = 10.0  # how long ``close`` waits for the caller's ``next``
+    POLL_S = 0.05  # how often a blocked hand-off looks for ``close``
+
+    def __init__(self, it: Iterator[dict]):
+        self._it = it
+        self._queue: queue.Queue = queue.Queue(maxsize=1)
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._pull, daemon=True,
+                                       name="ssf-stream-source")
+        self.thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=self.POLL_S)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def _pull(self) -> None:
+        last = _END
+        try:
+            for f in self._it:
+                if not self._put(f):
+                    return
+        except BaseException as exc:  # raised again by ``get``
+            last = exc
+        self._put(last)
+
+    def waiting(self) -> bool:
+        """Whether a frame (or the end) is ready to take."""
+        return not self._queue.empty()
+
+    def get(self) -> Optional[dict]:
+        """The next frame, waiting for it; None at the end."""
+        item = self._queue.get()
+        if isinstance(item, BaseException):
+            raise item
+        return None if item is _END else item
+
+    def __enter__(self) -> "_FrameSource":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        self._stop.set()
+        self.thread.join(self.JOIN_S)
+        if self.thread.is_alive():
+            print(f"WARNING: the frame source did not return within "
+                  f"{self.JOIN_S:.0f} s of the run's end; its thread is "
+                  "left to finish on its own", file=sys.stderr)
 
 
 def box_overshoot(points: np.ndarray, mask: np.ndarray, box) -> float:
@@ -160,7 +242,6 @@ class StreamingRunner:
         box = self.box
         step, make_carry = make_fused_step(self.model, self.cfg, box,
                                            self.use_gmm, self.seg_apply)
-        fh = open(self.tum_path, "w") if self.tum_path else None
         prev_pts, prev_mask, _ = self._to_device(prev if prev is not None
                                                  else first, n)
 
@@ -172,9 +253,14 @@ class StreamingRunner:
                         time=t[None])
 
         pending: collections.deque = collections.deque()
-        n_scans = 0
+        n_scans = retired_early = 0
         warned_box = False
         on_card = self.device.type == "cuda"
+
+        def on_host(entry) -> bool:
+            """Whether the entry's copy is done (on the CPU, always)."""
+            event = entry[6]
+            return event is None or event.query()
 
         def retire(entry):
             k, t_arr, t_disp, t_scan, host, start, event = entry
@@ -195,7 +281,9 @@ class StreamingRunner:
                              + " ".join(f"{x:.6f}" for x in v) + "\n")
                     fh.flush()
 
-        with torch.inference_mode():
+        tum = (open(self.tum_path, "w") if self.tum_path
+               else contextlib.nullcontext())
+        with tum as fh, _FrameSource(it) as source, torch.inference_mode():
             if warmup:
                 _, o = step(make_carry(prev_pts[None]), scan_of(first))
                 o[0]["pose_t"].cpu()
@@ -204,7 +292,8 @@ class StreamingRunner:
             if state is not None:
                 carry = ([state], carry[1])
             t_start = time.perf_counter()
-            for f in itertools.chain([first], it):
+            f = first
+            while f is not None:
                 t0 = time.perf_counter()
                 start = None
                 if on_card:
@@ -226,14 +315,19 @@ class StreamingRunner:
                 pending.append((n_scans, t0, time.perf_counter(),
                                 float(f["time"]), host, start, event))
                 prev_pts, prev_mask = scan["points"][0], scan["mask"][0]
-                if len(pending) >= self.pipeline_depth:
+                # the oldest pose retires at the depth bound, and before it
+                # where no scan is waiting to be dispatched or its copy is
+                # done: holding a pose that is on the host gains nothing
+                while pending and (len(pending) >= self.pipeline_depth
+                                   or not source.waiting()
+                                   or on_host(pending[0])):
+                    retired_early += len(pending) < self.pipeline_depth
                     retire(pending.popleft())
                 n_scans += 1
+                f = source.get()
             while pending:
                 retire(pending.popleft())
             wall = time.perf_counter() - t_start
-        if fh is not None:
-            fh.close()
         self.final_state = carry[0][0]
 
         lat = np.asarray(self.latencies_ms[-n_scans:])
@@ -250,10 +344,14 @@ class StreamingRunner:
             # the host time of one step's call: the cadence floor
             dispatch_ms_mean=float(disp.mean()),
             dispatch_ms_p95=float(np.percentile(disp, 95)),
-            # a finished pose's wait in the FIFO: at depth > 1, until the
-            # next scan has arrived and been dispatched
+            # a finished pose's wait in the FIFO: at depth > 1, behind the
+            # dispatch of a scan that was already waiting, where the copy
+            # was not done when that scan was taken
             held_ms_mean=float(held.mean()),
             held_ms_p95=float(np.percentile(held, 95)),
+            # poses retired before the depth bound and the final drain: no
+            # scan was waiting, or the copy was done
+            retired_early=retired_early,
             pipeline_depth=self.pipeline_depth,
             n_loops=int(self.final_state.map_state.n_loops_total),
         )

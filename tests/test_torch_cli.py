@@ -152,6 +152,7 @@ def test_cli_stream(tmp_path, random_npz, capsys):
                   "2", *_net_args(random_npz, 3), "--out", str(out)]) == 0
     text = capsys.readouterr().out
     assert "streamed 3 scans" in text and "completion latency mean" in text
+    assert "held mean" in text and "retired early" in text
     assert "10 Hz live target" in text
     assert len(_read_tum(out)[0]) == 3
     assert _main(["run", "--variant", "seg", "--stream", "--synthetic",
